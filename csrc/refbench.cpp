@@ -1,5 +1,5 @@
 // refbench: C++ stand-in for the reference's fastest engine (Rust CPU,
-// rust/sequence_alignment) for the end-to-end race in REFBENCH_r03.json.
+// rust/sequence_alignment) for the end-to-end race of scripts/bench_vs_reference.py.
 //
 // The image has no Rust toolchain (no rustc/cargo), so the reference's
 // feature-complete serial CPU engine cannot be built and timed directly.
@@ -23,7 +23,7 @@
 // Both engines' local-mode outputs are validated string-exact against the
 // EMBOSS goldens by scripts/bench_vs_reference.py before their times are
 // recorded.  This is BENCHMARK scaffolding, not part of the framework: the
-// product DP engines are ops/scan_dp.py and ops/pallas_dp.py.
+// product DP engines are ops/scan_dp.py and ops/fill.py (+ csrc/gpu/sw_fill.cu).
 //
 // Usage: refbench <ref_test_dir> <mode: local|global|glocal|all>
 //                 [--engine cell|flat|both] [--dump <dir>] [--reps N]

@@ -12,7 +12,7 @@
 // Two layouts:
 //   sw_traceback        — full matrix incl. boundary row/col (scan path);
 //                         row_stride in ELEMENTS.
-//   sw_traceback_tiled  — interior cells only (Pallas path): tb[(i-1), (j-1)]
+//   sw_traceback_tiled  — interior cells only (batched fills): tb[(i-1), (j-1)]
 //                         holds cell (i, j); boundary pointers are closed
 //                         form (see ops/traceback.py:_boundary_prev);
 //                         row_stride in BYTES (strided numpy view).

@@ -1,24 +1,20 @@
 #!/usr/bin/env python3
 """Multi-process scaling ladder: 1/2/4-process host-sharded sweeps.
 
-BASELINE.md targets >85% efficiency at 2 hosts; this environment has one
-TPU chip, so the distributed throughput signal is a host-sharded sweep
-over a real localhost ``jax.distributed`` rendezvous on the CPU backend.
+The distributed throughput signal here is a host-sharded sweep over a
+real localhost ``jax.distributed`` rendezvous on the CPU backend.
 Each process owns the sweep chunks with ``chunk % nprocs == pid``
 (sweep.py) — exactly the multi-host production flow; wall time is the
 slowest worker's sweep region (rendezvous + compile excluded via a
 warmup pass inside each worker).
 
-Experimental controls (VERDICT r4 task 5):
+Experimental controls:
   * every worker in EVERY config is pinned to exactly one distinct CPU
-    core (sched_setaffinity), so a 4-process row on this 4-core box
-    measures distributed overhead + imbalance, not core contention (r4's
-    2-process row shared all cores and read 80.4% partly for that
-    reason);
+    core (sched_setaffinity), so a 4-process row measures distributed
+    overhead + imbalance, not core contention;
   * chunk count is forced to a multiple of every process count so the
     round-robin imbalance cap (ceil/floor of chunks/nprocs) is exactly
-    1.0 — r4's 13-chunk split capped efficiency at 92.9% before any real
-    overhead.
+    1.0.
 The residual inefficiency then fits eff(n) = t1 / (n * tn) with
 per-process fixed cost c: tn = t1/n + c  =>  eff(n) = 1 / (1 + c*n/t1).
 

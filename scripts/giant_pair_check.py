@@ -4,7 +4,7 @@
 The reference's accelerated engine refuses any problem with
 ``(la+1)*(lb+1)*3 > i32::MAX`` — about 26k x 26k
 (``opencl_sequence_alignment.rs:672-674``).  This check aligns a
-32768 x ~32768 protein pair with the banded kernel + on-device walker
+32768 x ~32768 protein pair with the banded fill + on-device walker
 (``ops/banded.py``) and validates the result three ways, none of which
 needs a full-matrix oracle:
 
@@ -13,13 +13,13 @@ needs a full-matrix oracle:
      (``align_banded_verified``);
   2. the emitted alignment is re-scored column-by-column on host
      (``utils.calc_score``, parity with the reference's
-     ``test/calc_score.pl``) and must reproduce the kernel's score;
+     ``test/calc_score.pl``) and must reproduce the fill's score;
   3. the pair is engineered (partner = mutated copy with bounded indel
      drift), so a near-diagonal high-identity alignment is known to
      exist: the result must reach that identity.
 
-Usage:  python -u scripts/giant_pair_check.py            # TPU, 32k
-        python -u scripts/giant_pair_check.py --small    # CPU interpret, 2k
+Usage:  python -u scripts/giant_pair_check.py            # GPU, 32k
+        python -u scripts/giant_pair_check.py --small    # CPU, 2k
 """
 
 import sys
@@ -71,9 +71,10 @@ def main():
 
     n = 2048 if small else 32768
     band = 256 if small else 1024
-    interpret = small
     if not small:
-        assert jax.default_backend() == "tpu", jax.default_backend()
+        from smithwaterman_tpu import platform
+
+        platform.require_gpu()
 
     rng = np.random.default_rng(42)
     seq1, seq2 = make_pair(n, rng)
@@ -88,7 +89,7 @@ def main():
     t0 = time.time()
     idx1, idx2, score, band_used = align_banded_verified(
         codes1, codes2, sm.table, mode=LOCAL, og=-10.0, eg=-0.5,
-        band=band, max_band=4 * band, interpret=interpret,
+        band=band, max_band=4 * band,
     )
     t_cold = time.time() - t0
     print(f"banded verified: score={score} band_used={band_used} "
@@ -102,7 +103,7 @@ def main():
     rescore = recalc_score(a1, a2, sm, 10.0, 0.5)
     ok_score = abs(rescore - score) < 1e-3
     print(f"{'PASS' if ok_score else 'FAIL'} host re-score "
-          f"{rescore} vs kernel {score}", flush=True)
+          f"{rescore} vs fill {score}", flush=True)
 
     matches = sum(1 for x, y in zip(a1, a2) if x == y and x != "-")
     ident = matches / max(len(a1), 1)
@@ -114,23 +115,9 @@ def main():
     t0 = time.time()
     align_banded_verified(
         codes1, codes2, sm.table, mode=LOCAL, og=-10.0, eg=-0.5,
-        band=band, max_band=4 * band, interpret=interpret,
+        band=band, max_band=4 * band,
     )
     print(f"warm repeat: {time.time() - t0:.2f}s", flush=True)
-
-    # phase breakdown of ONE warm align_banded at each verified width
-    # (VERDICT r3 task 3: fill vs scores vs walk vs host, measured)
-    import json
-
-    from smithwaterman_tpu.ops import banded as banded_ops
-
-    for Wp in (band, band_used):
-        ph = banded_ops.phase_probe(
-            codes1, codes2, sm.table, mode=LOCAL, og=-10.0, eg=-0.5,
-            band=Wp, interpret=interpret,
-        )
-        print(json.dumps({"metric": "banded_phase", "W": Wp, **ph}),
-              flush=True)
 
     ok = ok_band and ok_score and ok_ident
     print("GIANT PAIR " + ("PASS" if ok else "FAIL"), flush=True)

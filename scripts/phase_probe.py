@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Phase breakdown of the end-to-end suite (VERDICT r3 task 1/7).
+"""Phase breakdown of the end-to-end suite.
 
 Runs the 100-pair reference suite warm in each mode, plus the 32x
 (3200-pair) suite in local mode, and prints BatchAligner.phase — the
@@ -68,10 +68,10 @@ def main():
     from smithwaterman_tpu import GLOBAL, GLOCAL, LOCAL
     from smithwaterman_tpu.batch_aligner import BatchAligner
 
-    from smithwaterman_tpu.utils.metrics import hbm_stream_probe
-
-    print(json.dumps({"backend": jax.default_backend(),
-                      "hbm_stream_gbs": hbm_stream_probe()}), flush=True)
+    dev = jax.devices()[0]
+    print(json.dumps({"device": {"platform": dev.platform,
+                                 "kind": dev.device_kind,
+                                 "count": len(jax.devices())}}), flush=True)
     pairs = load_pairs()
     rng = np.random.default_rng(0)
     shuf = [pairs[i] for i in rng.permutation(len(pairs))]
@@ -96,9 +96,6 @@ def main():
             _, row = run(ba, big_shuf, f"local_{args.rep}x_score_only",
                          score_only=True)
             rows.append(row)
-    rows.append({"metric": "window_end",
-                 "hbm_stream_gbs": hbm_stream_probe()})
-    print(json.dumps(rows[-1]), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rows, f, indent=1)

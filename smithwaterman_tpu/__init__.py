@@ -1,10 +1,10 @@
-"""smithwaterman_tpu — a TPU-native pairwise sequence-alignment framework.
+"""smithwaterman_tpu — a pairwise sequence-alignment framework on JAX.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of the reference
-`yamule/smithwaterman` suite: Smith-Waterman (local), Needleman-Wunsch
-(global) and end-gap-free (glocal) affine alignment, string-exact with EMBOSS
-water/needle; FASTA I/O; scoring matrices (BLOSUM62, match/mismatch, file
-parser, position-specific); batch and clustering drivers; multi-chip scaling
+A ground-up JAX/XLA re-design, with a CUDA fill kernel for NVIDIA GPUs, of
+the capabilities of the reference `yamule/smithwaterman` suite:
+Smith-Waterman (local), Needleman-Wunsch (global) and end-gap-free (glocal)
+affine alignment, string-exact with EMBOSS water/needle; FASTA I/O; scoring matrices (BLOSUM62, match/mismatch, file
+parser, position-specific); batch and clustering drivers; multi-card scaling
 via jax.sharding.
 """
 

@@ -5,9 +5,10 @@ API parity with the reference Rust engine
 ``align(s1, s2, retain_all)``, ``align_partial(..., partial_region,
 score_only)``, three modes, any ScoringMatrix.
 
-TPU-native structure: the O(n·m) fill runs on device (lax.scan reference path
-here; Pallas kernel via the batch API), shapes are bucketed so XLA compiles a
-handful of static programs, and the O(n+m) pointer walk runs on host.
+Structure: the O(n·m) fill runs on the device (the lax.scan reference path
+here; on a GPU ``align`` routes through the batch API and its CUDA fill),
+shapes are bucketed so XLA compiles a handful of static programs, and the
+O(n+m) pointer walk runs on host.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from .config import (
     CELL_MATCH,
     bucket_len,
 )
+from . import platform
 from .io.fasta import SeqData
 from .matrices import ScoringMatrix, SubstitutionMatrix
 from .ops import scan_dp, traceback
@@ -193,7 +195,7 @@ class Aligner:
         self.scoring_matrix = scoring_matrix or SubstitutionMatrix.blosum62()
         # replicate the Perl engine's input rewrite (perl_sanitize)
         self.perl_compat = perl_compat
-        self._batch = None  # lazy TPU-kernel delegate (see align_partial)
+        self._batch = None  # lazy batch-pipeline delegate (align_partial)
 
     # ------------------------------------------------------------------
     @property
@@ -203,15 +205,6 @@ class Aligner:
     def prepare(self, s1, s2) -> None:
         """Parity hook for PositionSpecificMatrix (rs:51-54)."""
         self.scoring_matrix.prepare(_as_seqdata(s1), _as_seqdata(s2))
-
-    @staticmethod
-    def _on_tpu() -> bool:
-        import jax
-
-        try:
-            return jax.default_backend() == "tpu"
-        except Exception:  # pragma: no cover - backend init failure
-            return False
 
     # ------------------------------------------------------------------
     def align(self, s1, s2, retain_all: bool = True) -> AlignResult:
@@ -255,10 +248,6 @@ class Aligner:
             return self._degenerate(
                 s1, s2, len(codes1), len(codes2), retain_all, False
             )
-        import jax
-        import numpy as np
-
-        interpret = jax.default_backend() != "tpu"
         table = np.asarray(self.scoring_matrix.table, np.float32)
         fn = (
             banded_ops.align_banded_verified if verified else banded_ops.align_banded
@@ -266,7 +255,6 @@ class Aligner:
         idx1, idx2, score, _ = fn(
             codes1, codes2, table, mode=self.mode,
             og=self.config.og, eg=self.config.eg, band=band,
-            interpret=interpret,
         )
         return reconstruct_alignment(
             s1.seq, s2.seq, idx1, idx2, score, retain_all, self.mode
@@ -299,15 +287,15 @@ class Aligner:
             s1 = _perl_compat_seq(s1)
             s2 = _perl_compat_seq(s2)
 
-        # On TPU the flagship API uses the flagship kernel: route through
-        # the batch pipeline (B=1 bucketing) whenever the matrix is a
-        # letter table (PSMs are per-pair — scan path) and no partial
-        # region narrows the sequences.  The kernel is bit-exact vs scan
-        # (tests/test_pallas_kernel.py), so results are unchanged.
+        # Off the CPU the single-pair API uses the batch pipeline and its
+        # device fill (B=1 bucketing) whenever the matrix is a letter table
+        # (PSMs are per-pair — scan path) and no partial region narrows the
+        # sequences.  The fills are bit-exact vs scan, so results are
+        # unchanged.
         if (
             partial_region is None
             and hasattr(self.scoring_matrix, "table")
-            and self._on_tpu()
+            and platform.default_backend() != "scan"
         ):
             if self._batch is None:
                 from .batch_aligner import BatchAligner

@@ -13,7 +13,8 @@ Usage:
   python -m smithwaterman_tpu.cli -cluster [-mode] [-identity X] \
       [-coverage_short X] [-coverage_long X] -out out.fas in.fas
 
-Alignment batches run through BatchAligner (bucketed, Pallas on TPU).
+Alignment batches run through BatchAligner (bucketed; the CUDA fill on a
+GPU).
 """
 
 from __future__ import annotations
@@ -237,9 +238,9 @@ def run_pairfiles(opts: AlignmentOptions, engine: BatchAligner) -> None:
             if banded is not None:
                 # banded pairs bypass the BatchAligner engine, so record
                 # them into its stats here or -stats would report an
-                # all-zero run (ADVICE r4).  Cells are the FULL problem's
+                # all-zero run.  Cells are the FULL problem's
                 # n*m — the standard "effective GCUPS" convention for
-                # banded DP (the kernel computes only ~band*n of them).
+                # banded DP (the fill computes only ~band*n of them).
                 import time as _time
 
                 results = []

@@ -15,7 +15,7 @@ Behavioral parity with the reference's ``-cluster`` mode
     too (their ``cluster_of`` is never reassigned, main.rs:252) — we
     replicate that.
 
-TPU-native difference: within one greedy row every candidate alignment is
+Batching difference: within one greedy row every candidate alignment is
 independent, so the whole row is dispatched as one bucketed batch instead of
 the reference's serial aligner calls — identical results, device-sized work.
 Rows are the parallelism ceiling for EXACT parity: which sequences remain

@@ -2,7 +2,7 @@
 
 The reference hardcodes gap penalties in its CLIs (go=10, ge=0.5;
 rust/sequence_alignment/src/main.rs:34) while its engines accept any values;
-we expose them in one dataclass together with TPU-side execution knobs.
+we expose them in one dataclass together with the bucket ladder.
 """
 
 from __future__ import annotations
@@ -32,19 +32,18 @@ CELL_STOP = 3
 # Default padded-length ladder for shape bucketing (median reference test
 # length is ~438, max 3685; cf. SURVEY.md §6).
 #
-# Mosaic's real layout constraint is lanes in multiples of 128 (sublanes
-# of 8), not powers of two, so the ladder runs 128-multiples through 2048
-# (where most real protein lengths live), then coarsens.  vs the r4 pow2
-# ladder this cuts padding waste 0.57 -> 0.25 on a random-length 150-700
-# production sweep and 0.47 -> 0.21 on the 32x reference suite (VERDICT
-# r4 task 2; a 520-residue sequence padded to 1024 = 3.9x its cells).
-# The tradeoff is compile count — the reference suite buckets into ~61
-# shapes instead of ~26.  Real TPU hosts amortize that through the
-# persistent compilation cache; per-program dispatch overhead does NOT
-# rise with bucket count because fills and walks dispatch POOLED
-# (ops/batch.fill_many, device_walk.walk_bundle_pooled).  Workloads with
-# a known length distribution can do better still: see
-# :func:`ladder_for_lengths`.
+# Every bucket shape is one compiled program per (mode, quantum chunk), and
+# padded cells are filled like real ones, so the ladder trades compile
+# count against padding: it runs 128-multiples through 2048 (where most
+# real protein lengths live), then coarsens.  Against a power-of-two
+# ladder this roughly halves the padding on a random-length 150-700
+# sweep (a 520-residue sequence padded to 1024 is 3.9x its cells), at
+# the cost of more shapes (~61 instead of ~26 on the reference suite).
+# The persistent compilation cache amortizes the compiles, and dispatch
+# overhead does not grow with the bucket count because fills and walks
+# dispatch POOLED (ops/batch.fill_many, device_walk.walk_bundle_pooled).
+# Results never depend on the ladder.  Workloads with a known length
+# distribution can do better still: see :func:`ladder_for_lengths`.
 DEFAULT_BUCKETS: Tuple[int, ...] = (
     64, 128, 256, 384, 512, 640, 768, 896, 1024, 1280, 1536, 1792, 2048,
     2560, 3072, 3584, 4096, 5120, 6144, 7168, 8192,
@@ -105,13 +104,13 @@ def ladder_for_lengths(
     """Pick a bucket ladder matched to an observed length distribution.
 
     Rungs are placed at equal-mass quantiles of the distribution, rounded
-    up to ``quantum`` (128 = Mosaic's lane multiple; sublanes only need
-    8), so padding concentrates where sequences actually are: each rung
+    up to ``quantum`` (128 by default, the default ladder's step), so
+    padding concentrates where sequences actually are: each rung
     absorbs ~1/max_rungs of the sequences with at most one quantum of
     per-dimension padding inside dense regions.  Use for production
     sweeps with known inputs (``AlignConfig(buckets=ladder_for_lengths(
     [len(s.seq) for s in seqs]))``); every rung pair that occurs costs
-    one kernel compile (cached persistently on real TPU hosts), which is
+    one fill compile (kept in the persistent compile cache), which is
     why the count is bounded by ``max_rungs``.
     """
     import numpy as np

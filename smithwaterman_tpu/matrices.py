@@ -1,6 +1,6 @@
 """Scoring matrices for pairwise sequence alignment.
 
-TPU-native re-design of the reference scoring layer
+Re-design of the reference scoring layer
 (cf. /root/reference/rust/sequence_alignment/src/sequence_alignment.rs:574-795).
 
 Components (reference parity):
@@ -11,9 +11,10 @@ Components (reference parity):
   * ``PositionSpecificMatrix`` — position-indexed (profile) scores
       (ref: sequence_alignment.rs:583-623).
 
-Design difference from the reference: the TPU compute path consumes either
-(a) dense int32 code arrays + a dense ``(K, K)`` float32 table (kernels build
-substitution scores on-device via profile lookup / one-hot matmul on the MXU),
+Design difference from the reference: the device compute path consumes either
+(a) dense int8/int32 code arrays + a dense ``(K, K)`` float32 table (the
+fills look substitution scores up on the device, per row or from a table in
+the kernel's shared memory),
 or (b) a dense ``(la, lb)`` score matrix for the position-specific case.  The
 classes here produce those dense arrays; no per-cell host callbacks exist.
 """

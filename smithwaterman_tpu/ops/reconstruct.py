@@ -33,8 +33,7 @@ _BOUND = False
 
 
 def _lib():
-    """The shared native library, with sw_reconstruct_moves (and the
-    token variant) bound."""
+    """The shared native library, with sw_reconstruct_moves bound."""
     global _BOUND
     lib = _tb._load_native()
     if lib is None or not hasattr(lib, "sw_reconstruct_moves"):
@@ -45,7 +44,7 @@ def _lib():
         pi32 = ctypes.POINTER(ctypes.c_int32)
         pi64 = ctypes.POINTER(ctypes.c_int64)
         argtypes = [
-            pu8, i64, i64,          # moves/toks, row_stride, n_rows
+            pu8, i64, i64,          # moves, row_stride, n_rows
             pi32, pi32, pi32,       # cnt, i0, j0
             pu8, pi64, pu8, pi64,   # seq1, off1, seq2, off2
             i64, i64, i64,          # count, local, retain
@@ -54,9 +53,6 @@ def _lib():
         ]
         lib.sw_reconstruct_moves.restype = i64
         lib.sw_reconstruct_moves.argtypes = argtypes
-        if hasattr(lib, "sw_reconstruct_tokens"):
-            lib.sw_reconstruct_tokens.restype = i64
-            lib.sw_reconstruct_tokens.argtypes = argtypes
         _BOUND = True
     return lib
 
@@ -76,7 +72,6 @@ def reconstruct_packed(
     mode: int,
     retain_all: bool,
     col0: int = 0,
-    tokens: bool = False,
 ) -> List:
     """Replay a bucket's packed move streams into AlignResults.
 
@@ -86,11 +81,6 @@ def reconstruct_packed(
     array + col0 rather than a sliced copy — slices of pooled bundles
     are non-contiguous), cnt/i0/j0/scores are per-pair (>= count
     entries).
-
-    ``tokens=True`` interprets ``moves`` as a TOKEN stream
-    (walk_bundle_pooled_tokens: one byte per token, state bits 0-1,
-    extra MATCH steps bits 2-5, ``cnt`` counting tokens) and expands
-    runs during the rebuild.
     """
     from ..aligner import AlignResult, reconstruct_alignment
 
@@ -102,10 +92,6 @@ def reconstruct_packed(
         retain_all = True
 
     lib = _lib()
-    if tokens and lib is not None and not hasattr(
-        lib, "sw_reconstruct_tokens"
-    ):
-        lib = None  # stale native build: use the exact Python path
     if lib is not None and count:
         moves = np.ascontiguousarray(moves, np.uint8)
         n_rows, B = moves.shape
@@ -133,9 +119,7 @@ def reconstruct_packed(
         i64, i32, u8 = ctypes.c_int64, ctypes.c_int32, ctypes.c_uint8
         mv_ptr = ctypes.cast(
             moves.ctypes.data + col0, ctypes.POINTER(u8))
-        native = (lib.sw_reconstruct_tokens if tokens
-                  else lib.sw_reconstruct_moves)
-        rc = native(
+        rc = lib.sw_reconstruct_moves(
             mv_ptr, B, n_rows,
             _ptr(cnt32, i32), _ptr(i032, i32), _ptr(j032, i32),
             _ptr(seq1, u8), _ptr(off1, i64), _ptr(seq2, u8),
@@ -162,10 +146,8 @@ def reconstruct_packed(
         # Python path, which raises or reproduces faithfully
 
     res = []
-    to_path = (device_walk.tokens_to_path if tokens
-               else device_walk.moves_to_path)
     for k in range(count):
-        idx1, idx2 = to_path(
+        idx1, idx2 = device_walk.moves_to_path(
             moves[:, col0:], cnt, int(i0[k]), int(j0[k]), k
         )
         if not local:

@@ -1,8 +1,8 @@
 """Reference DP fill: `lax.scan` over rows, vectorized across the j axis.
 
-This is the portable (CPU/TPU) exact-semantics engine.  The hot Pallas kernel
-(`ops/pallas_dp.py`) implements the same cell rules; this module is the oracle
-the kernel is tested against, and the path used for odd shapes.
+This is the portable exact-semantics engine.  The batched fills (ops/fill.py:
+the plain-JAX row scan and the CUDA kernel) implement the same cell rules;
+this module is the oracle they are tested against, and the CPU path.
 
 Semantics parity (bit-exact, including tie-breaks) with the reference Rust
 engine `fill_matrix`/`backtrack`
@@ -20,7 +20,7 @@ engine `fill_matrix`/`backtrack`
     (rs:100-117); cell (0,0) is (0, -1, -1) (rs:89-91).
   * local mode clamps all three states at 0 after selection (rs:256-260).
 
-TPU-first design note: the reference fills cells serially; the only
+Design note: the reference fills cells serially; the only
 j-sequential dependence in a row is the X recurrence
 ``X[j] = max(G[j-1], X[j-1] + pe)`` with ``G = max(M, Y) + po``.  That is a
 max-plus prefix scan: ``X[j] = cummax(G[k] - k*pe)[j-1] + (j-1)*pe``.  All

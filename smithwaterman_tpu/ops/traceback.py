@@ -215,7 +215,7 @@ def walk(
 def _boundary_prev(i: int, j: int, s: int, local: bool) -> int:
     """Closed-form predecessor pointers on the DP boundary (row 0 / col 0).
 
-    The tiled kernel (ops/pallas_dp.py) stores pointers only for interior
+    The batched fills (ops/fill.py) store pointers only for interior
     cells (i,j >= 1); boundary pointers are a pure function of mode
     (parity: scan_dp._row0 / row_step's j==0 branch, i.e.
     sequence_alignment.rs:88-117):
@@ -252,7 +252,7 @@ def normalize_boundary_state(i: int, j: int, s: int) -> int:
 def walk_tiled(
     tb: np.ndarray, si: int, sj: int, state: int, local: bool
 ) -> Tuple[List[int], List[int]]:
-    """Like :func:`walk`, but over the tiled kernel's interior-only pointer
+    """Like :func:`walk`, but over a batched fill's interior-only pointer
     array: ``tb[i-1, j-1]`` holds the packed pointers of DP cell (i, j)."""
     lib = _load_native()
     if lib is not None and hasattr(lib, "sw_traceback_tiled") and tb.strides[1] == 1:

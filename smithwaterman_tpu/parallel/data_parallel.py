@@ -1,25 +1,26 @@
 """Data-parallel fill over a device mesh.
 
-The reference has no multi-device path (SURVEY.md §2.5); this is the
-TPU-native scale-out design: alignment-pair tiles are sharded over a 1-D
-``('data',)`` mesh with ``shard_map`` — each chip runs the Pallas fill kernel
-on its local tiles, and per-pair outputs (traceback blocks + stats) come back
-sharded on the same axis, so the only cross-device traffic is the initial
-scatter and final gather riding ICI.  Multi-host runs initialize with
-``jax.distributed`` and shard the global batch the same way.
+The reference has no multi-device path (SURVEY.md §2.5); here alignment
+pairs are sharded over a 1-D ``('data',)`` mesh with ``shard_map`` — each
+device runs the fill (ops/fill.py) on its local pairs and, on the
+device-walk route, walks them too, so the only cross-device traffic is the
+initial scatter of int8 codes and the final gather of per-pair results.
+Multi-host runs initialize with ``jax.distributed`` and shard the global
+batch the same way.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops import pallas_dp
+from ..ops import device_walk
+from ..ops import fill as fill_ops
 
 
 def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
@@ -32,218 +33,90 @@ def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
 
 
 @functools.lru_cache(maxsize=64)
-def _sharded_fill_fn(mesh, mode, og, eg, score_only, interpret, masked_s=False):
-    def local_fill(S_l, n_l, m_l):
-        tb, stats = pallas_dp.fill_tiled(
-            S_l,
-            n_l,
-            m_l,
-            mode=mode,
-            og=og,
-            eg=eg,
-            score_only=score_only,
-            interpret=interpret,
-            masked_s=masked_s,
+def _sharded_fn(mesh, backend, mode, og, eg, score_only, quarter, walk, L):
+    """One sharded program: per-shard fill, then (``walk``) the per-shard
+    device walk.  ``walk`` is None (return pointers + stats), "index"
+    (device_walk.walk_bundle) or "packed" (walk_bundle_packed)."""
+
+    def local(table, c1, c2, n, m):
+        tb, stats = fill_ops.fill(
+            table, c1, c2, n, m, backend=backend, mode=mode, og=og, eg=eg,
+            score_only=score_only, quarter=quarter,
         )
-        if tb is None:
-            tb = jnp.zeros((1, 1, 1, 1), jnp.uint8)
-        return tb, stats
+        if walk is None:
+            if tb is None:
+                tb = jnp.zeros((1, 1, 1, 1), jnp.uint8)
+            return tb, stats
+        walker = (device_walk.walk_bundle_packed if walk == "packed"
+                  else device_walk.walk_bundle)
+        out = walker(tb, stats, n, m, mode=mode, L=L)
+        return tuple(x[None] for x in out)  # leading axis: one per shard
 
     spec = P("data")
+    n_out = 2 if walk in (None, "index") else 3
     return jax.jit(
         jax.shard_map(
-            local_fill,
-            mesh=mesh,
-            in_specs=(spec, spec, spec),
-            out_specs=(spec, spec),
-            # pallas_call out_shapes carry no vma info; skip the check
-            check_vma=False,
-        )
-    )
-
-
-@functools.lru_cache(maxsize=64)
-def _sharded_walk_fn(mesh, mode, og, eg, interpret, masked_s, L):
-    """Fill + on-device traceback walk per shard, ONE sharded program:
-    the pointer matrix never leaves any device; each shard ships back a
-    single int32 bundle (ops/device_walk.py).  Replaces the full-matrix
-    device->host transfer the sharded path paid through r2."""
-    from ..ops import device_walk
-
-    def local_fill_walk(S_l, n_l, m_l):
-        tb, stats = pallas_dp.fill_tiled(
-            S_l, n_l, m_l, mode=mode, og=og, eg=eg,
-            score_only=False, interpret=interpret, masked_s=masked_s,
-        )
-        st, idx = device_walk.walk_bundle(
-            tb, stats, n_l.reshape(-1), m_l.reshape(-1), mode=mode, L=L
-        )
-        return st[None], idx[None]  # leading axis: concat over shards
-
-    spec = P("data")
-    return jax.jit(
-        jax.shard_map(
-            local_fill_walk, mesh=mesh, in_specs=(spec, spec, spec),
-            out_specs=(spec, spec), check_vma=False,
-        )
-    )
-
-
-@functools.lru_cache(maxsize=64)
-def _sharded_walk_packed_fn(mesh, mode, og, eg, interpret, masked_s, L):
-    """Like _sharded_walk_fn, but each shard ships back the packed 2-bit
-    MOVE stream (ops/device_walk.walk_bundle_packed) instead of index
-    rows — an 8-16x smaller all-shards transfer, consumed by the native
-    bulk string rebuild (ops/reconstruct.py)."""
-    from ..ops import device_walk
-
-    def local_fill_walk(S_l, n_l, m_l):
-        tb, stats = pallas_dp.fill_tiled(
-            S_l, n_l, m_l, mode=mode, og=og, eg=eg,
-            score_only=False, interpret=interpret, masked_s=masked_s,
-        )
-        st, cnt, mv = device_walk.walk_bundle_packed(
-            tb, stats, n_l.reshape(-1), m_l.reshape(-1), mode=mode, L=L
-        )
-        return st[None], cnt[None], mv[None]
-
-    spec = P("data")
-    return jax.jit(
-        jax.shard_map(
-            local_fill_walk, mesh=mesh, in_specs=(spec, spec, spec),
-            out_specs=(spec, spec, spec), check_vma=False,
-        )
-    )
-
-
-@functools.lru_cache(maxsize=64)
-def _sharded_diag_fn(mesh, og, eg, interpret):
-    from ..ops import diag_dp
-
-    def local_fill(S_l):
-        return diag_dp.fill_diag_scores(S_l, og=og, eg=eg, interpret=interpret)
-
-    spec = P("data")
-    return jax.jit(
-        jax.shard_map(
-            local_fill, mesh=mesh, in_specs=(spec,), out_specs=spec,
+            local, mesh=mesh, in_specs=(P(), spec, spec, spec, spec),
+            out_specs=(spec,) * n_out,
+            # ffi_call results carry no varying-axis info; skip the check
             check_vma=False,
         )
     )
 
 
 class DataParallel:
-    """Shards tiled fill calls over a ``('data',)`` mesh."""
+    """Shards batch fills over a ``('data',)`` mesh."""
 
     def __init__(self, mesh: Optional[Mesh] = None, n_devices: Optional[int] = None):
         self.mesh = mesh if mesh is not None else make_mesh(n_devices)
         self.n_devices = self.mesh.devices.size
 
-    def fill_pallas(
-        self,
-        S_tiled,
-        n: np.ndarray,
-        m: np.ndarray,
-        *,
-        mode: int,
-        og: float,
-        eg: float,
-        score_only: bool = False,
-        interpret: bool = False,
-        masked_s: bool = False,
-    ) -> Tuple[Optional[np.ndarray], np.ndarray]:
-        """Same contract as ops.batch.fill_pallas, sharded over the mesh.
-
-        ``S_tiled`` is (G, NP, tile, MP) with G divisible by the mesh size.
-        """
-        G, _, tile, _ = S_tiled.shape
-        if G % self.n_devices:
+    def _run(self, table, codes1, codes2, n, m, *, backend, mode, og, eg,
+             score_only, quarter, walk, L):
+        B = codes1.shape[0]
+        if B % self.n_devices:
             raise ValueError(
-                f"tile count {G} not divisible by mesh size {self.n_devices}"
+                f"pair count {B} not divisible by mesh size {self.n_devices}"
             )
-        nt = jnp.asarray(np.asarray(n).reshape(G, tile, 1), jnp.int32)
-        mt = jnp.asarray(np.asarray(m).reshape(G, tile, 1), jnp.int32)
-        fn = _sharded_fill_fn(
-            self.mesh, mode, float(og), float(eg), score_only,
-            bool(interpret), bool(masked_s)
-        )
-        tb, stats = fn(S_tiled, nt, mt)
-        stats_np = np.asarray(stats).reshape(G * tile, pallas_dp.STATS_W)
-        tb_np = np.asarray(tb) if not score_only else None
-        return tb_np, stats_np
+        fn = _sharded_fn(self.mesh, backend, int(mode), float(og),
+                         float(eg), bool(score_only), bool(quarter), walk,
+                         int(L))
+        return fn(jnp.asarray(np.asarray(table, np.float32)),
+                  jnp.asarray(codes1), jnp.asarray(codes2),
+                  jnp.asarray(np.asarray(n), jnp.int32),
+                  jnp.asarray(np.asarray(m), jnp.int32))
 
-    def fill_walk_bundle(
-        self,
-        S_tiled,
-        n: np.ndarray,
-        m: np.ndarray,
-        *,
-        mode: int,
-        og: float,
-        eg: float,
-        L: int,
-        interpret: bool = False,
-        masked_s: bool = False,
-    ):
+    def fill(self, table, codes1, codes2, n, m, *, backend: str, mode: int,
+             og: float, eg: float, score_only: bool = False,
+             quarter: bool = False):
+        """Sharded fill; returns HOST arrays (tb (G, NP, T, MP) or None,
+        stats (B, 8)) in pair order (shard-major)."""
+        tb, stats = self._run(
+            table, codes1, codes2, n, m, backend=backend, mode=mode, og=og,
+            eg=eg, score_only=score_only, quarter=quarter, walk=None, L=0,
+        )
+        tb, stats = jax.device_get((tb, stats))
+        return (None if score_only else tb), np.asarray(stats)
+
+    def fill_walk_bundle(self, table, codes1, codes2, n, m, *, backend: str,
+                         mode: int, og: float, eg: float, L: int,
+                         quarter: bool = False):
         """Fill + device walk, sharded; returns DEVICE arrays
         (stats (D, Bp, 8) f32, idx (D, 2, L, Bp)) — decode per shard with
         ops.device_walk.decode_bundle; global pair order = shard-major."""
-        G, _, tile, _ = S_tiled.shape
-        if G % self.n_devices:
-            raise ValueError(
-                f"tile count {G} not divisible by mesh size {self.n_devices}"
-            )
-        nt = jnp.asarray(np.asarray(n).reshape(G, tile, 1), jnp.int32)
-        mt = jnp.asarray(np.asarray(m).reshape(G, tile, 1), jnp.int32)
-        fn = _sharded_walk_fn(
-            self.mesh, mode, float(og), float(eg), bool(interpret),
-            bool(masked_s), int(L),
+        return self._run(
+            table, codes1, codes2, n, m, backend=backend, mode=mode, og=og,
+            eg=eg, score_only=False, quarter=quarter, walk="index", L=L,
         )
-        return fn(S_tiled, nt, mt)
 
-    def fill_walk_bundle_packed(
-        self,
-        S_tiled,
-        n: np.ndarray,
-        m: np.ndarray,
-        *,
-        mode: int,
-        og: float,
-        eg: float,
-        L: int,
-        interpret: bool = False,
-        masked_s: bool = False,
-    ):
+    def fill_walk_bundle_packed(self, table, codes1, codes2, n, m, *,
+                                backend: str, mode: int, og: float,
+                                eg: float, L: int, quarter: bool = False):
         """Fill + packed device walk, sharded; returns DEVICE arrays
         (stats (D, Bp, 8) f32, cnt (D, Bp) i32, moves (D, ceil(L/4), Bp)
         u8) — walk_bundle_packed's contract per shard, shard-major pair
         order."""
-        G, _, tile, _ = S_tiled.shape
-        if G % self.n_devices:
-            raise ValueError(
-                f"tile count {G} not divisible by mesh size {self.n_devices}"
-            )
-        nt = jnp.asarray(np.asarray(n).reshape(G, tile, 1), jnp.int32)
-        mt = jnp.asarray(np.asarray(m).reshape(G, tile, 1), jnp.int32)
-        fn = _sharded_walk_packed_fn(
-            self.mesh, mode, float(og), float(eg), bool(interpret),
-            bool(masked_s), int(L),
+        return self._run(
+            table, codes1, codes2, n, m, backend=backend, mode=mode, og=og,
+            eg=eg, score_only=False, quarter=quarter, walk="packed", L=L,
         )
-        return fn(S_tiled, nt, mt)
-
-    def fill_diag(
-        self, S_tiled, *, og: float, eg: float, interpret: bool = False
-    ) -> np.ndarray:
-        """Wavefront LOCAL score-only fill sharded over the mesh.
-
-        Same stats contract as ``ops.batch.fill_diag``; callers must check
-        ``diag_dp.eligible`` first.
-        """
-        G, _, tile, _ = S_tiled.shape
-        if G % self.n_devices:
-            raise ValueError(
-                f"tile count {G} not divisible by mesh size {self.n_devices}"
-            )
-        fn = _sharded_diag_fn(self.mesh, float(og), float(eg), bool(interpret))
-        stats = fn(S_tiled)
-        return np.asarray(stats).reshape(G * tile, pallas_dp.STATS_W)

@@ -6,7 +6,7 @@ mesh, and devices process row blocks in a software-pipelined wavefront —
 device d computes row block r as soon as device d-1 has finished the same
 rows.  The only cross-device traffic is each block's right-edge carry
 (M, X, Y boundary values plus the max-plus prefix-scan running max C —
-4 floats per row per pair), passed with ``lax.ppermute`` over ICI.
+4 floats per row per pair), passed with ``lax.ppermute`` between neighbouring devices.
 
 The prefix-scan composition is exact: with H[k] = G[k] - k*ge on *global*
 column indices, cummax composes associatively across shards, so scores are
@@ -39,13 +39,9 @@ import numpy as np
 from jax.sharding import PartitionSpec as P
 
 from ..config import CELL_MATCH, CELL_STOP, GLOBAL, GLOCAL, LOCAL
+from ..ops.fill import row0_carries
 
 NEG = -3.0e38
-# minimum shard width for the sublane-folded single-pair kernel (below
-# this the fold's cross-sublane carries cost more than they save), and
-# the per-sublane-chunk lane alignment its 8 fold DMAs require
-FOLD_MIN_W = 1024
-FOLD_LANE = 128
 BIGI = 2**30
 
 
@@ -59,18 +55,9 @@ def _row_cells(
     abm, abx, aby,      # (P, 1) left-edge [M, X, Y] at (i-1, col0)
     nvec, mvec,         # (P, 1) true lengths
     emit_tb: bool,
-    cummax_fn=None,     # lane cummax impl (Pallas kernel passes its own —
-                        # Mosaic has no cummax primitive)
-    shift_fn=None,      # lane shift-right impl: (v, fill) -> shifted.
-                        # Default jnp.concatenate; the Pallas kernel passes
-                        # a pltpu.roll variant — Mosaic cannot lower the
-                        # concat of offset-layout slices at P == 1 sublane
-    jgf_pe=None,        # optional hoisted (jgf - 1) * eg (loop-invariant
-                        # outside GLOCAL; saves 2 wide ops/row)
 ):
     """One striped DP row over local lanes — the exact cell rules of
-    ops/scan_dp.fill, shared by the pure-JAX shard_map path and the Pallas
-    per-shard block kernel so both are bit-identical by construction.
+    ops/scan_dp.fill.
 
     Returns (val_m, val_x, val_y, c, tb_row-or-None); ``c`` is the running
     cummax of the global-domain H (its last lane rides the edge payload).
@@ -79,10 +66,9 @@ def _row_cells(
     lsc_i = fi * se + (so - se)
     P, W = cm.shape
 
-    if shift_fn is None:
-        shift_fn = lambda v, fill: jnp.concatenate(
-            [fill, v[:, :-1]], axis=1
-        )
+    def shift_fn(v, fill):
+        return jnp.concatenate([fill, v[:, :-1]], axis=1)
+
     if emit_tb:
         Mp1 = shift_fn(cm, abm)
         Xp1 = shift_fn(cx, abx)
@@ -95,10 +81,10 @@ def _row_cells(
             m_ge_x, jnp.where(m_ge_y, 0, 2), jnp.where(x_ge_y, 1, 2)
         )
     else:
-        # fused max3 (ops/pallas_dp.py, +11% there): max3 is associative
-        # and commutes with the lane shift, and the fused boundary fill
-        # is the max of the three per-state fills — ONE shift instead of
-        # three, bit-identical by construction
+        # fused max3: max3 is associative and commutes with the lane
+        # shift, and the fused boundary fill is the max of the three
+        # per-state fills — ONE shift instead of three, bit-identical by
+        # construction
         W3 = jnp.maximum(jnp.maximum(cm, cx), cy)
         fill_w = jnp.maximum(jnp.maximum(abm, abx), aby)
         val_m = shift_fn(W3, fill_w) + srow
@@ -140,17 +126,15 @@ def _row_cells(
     g_edge = jnp.maximum(ebm, eby) + po  # G at col0
     gline = jnp.maximum(val_m, val_y) + po
     hraw = shift_fn(gline, g_edge)
-    if jgf_pe is None or mode == GLOCAL:  # glocal: pe varies by row
-        jgf_pe = (jgf - 1.0) * pe
+    jgf_pe = (jgf - 1.0) * pe
     h = hraw - jgf_pe
     # The h0 fold h[0] <- max(h[0], x0b + pe) is a VALUE no-op in every
-    # mode (ops/pallas_dp.py r2 proof): device-0 lane 0 holds
+    # mode: device-0 lane 0 holds
     # g_edge = lsc_i + po and x0b + pe - g_edge = sent + pe - po
     # = 9og + 11eg <= 0 for admissible penalties, with equal values on
     # equality; non-zero shards never have global j == 1.  Skipped
     # (saves an iota-compare + select + max per row).
-    scan = cummax_fn or (lambda v: jax.lax.cummax(v, axis=1))
-    c = jnp.maximum(scan(h), ebc)
+    c = jnp.maximum(jax.lax.cummax(h, axis=1), ebc)
     val_x = c + jgf_pe
     if mode == LOCAL:
         val_x = jnp.maximum(val_x, 0.0)
@@ -175,692 +159,14 @@ def _row_cells(
             prev_m = jnp.where(val_m == 0.0, CELL_STOP, prev_m)
             prev_x = jnp.where(val_x == 0.0, CELL_STOP, prev_x)
             prev_y = jnp.where(val_y == 0.0, CELL_STOP, prev_y)
-        # pack in int32 and narrow once: vector shifts on uint8 do not
-        # legalize in Mosaic (cf. ops/pallas_dp.py's int32-domain packing)
         tb_row = (prev_m | (prev_x << 2) | (prev_y << 4)).astype(jnp.uint8)
 
     return val_m, val_x, val_y, c, tb_row
 
 
-def _roll_shift_right(v, fill):
-    """Mosaic-legal lane shift-right: rotate + lane-0 select.  The concat
-    form (jnp.concatenate([fill, v[:, :-1]])) fails to lower at P == 1
-    sublane (offset-layout concatenate); tpu.rotate has no such limit."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    rolled = pltpu.roll(v, shift=1, axis=1)
-    lane = jax.lax.broadcasted_iota(jnp.int32, v.shape, 1)
-    return jnp.where(lane == 0, fill, rolled)
-
-
-def _roll_cummax(v):
-    """Hillis-Steele lane cummax via rotate + mask (cf. _roll_shift_right);
-    correct for any W (rolled-in lanes are masked to NEG)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    P, W = v.shape
-    lane = jax.lax.broadcasted_iota(jnp.int32, (P, W), 1)
-    sh = 1
-    while sh < W:
-        shifted = jnp.where(lane < sh, NEG, pltpu.roll(v, shift=sh, axis=1))
-        v = jnp.maximum(v, shifted)
-        sh *= 2
-    return v
-
-
-def _last_lane(v):
-    """(P, W) -> (P, 1) value of lane W-1, Mosaic-legal (roll to lane 0;
-    a direct v[:, -1:] slice carries an offset layout concatenate cannot
-    consume at P == 1)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    return pltpu.roll(v, shift=1, axis=1)[:, :1]
-
-
-# ---------------------------------------------------------------------------
-# Sublane-folded helpers (B == 1 single-pair shards).
-#
-# A one-pair shard runs every row op as (1, W): one of the VPU's 8 sublanes
-# doing all the work.  Folding the shard's W lanes onto the sublane axis —
-# v[s, l] holds global lane s*Wf + l, Wf = W // 8 — fills the register file
-# and cuts the vector-op count 8x.  The global lane ORDER (the thing the
-# shift and the prefix cummax depend on) is sublane-major, so the shift
-# carries one value across each sublane boundary and the cummax becomes the
-# classic two-level blocked scan: per-sublane lane scan + exclusive
-# sublane-prefix of the block totals.
-# ---------------------------------------------------------------------------
-
-
-def _fold_last_lane(v):
-    """Global last lane of a folded (8, Wf) value -> (1, 1)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    r = pltpu.roll(pltpu.roll(v, shift=1, axis=1), shift=1, axis=0)
-    return r[:1, :1]
-
-
-def _fold_shift_right(v, fill):
-    """Global shift-right of a folded (8, Wf) value; ``fill`` enters at
-    global lane 0 (sublane 0, lane 0); every other sublane's lane 0 takes
-    the previous sublane's last lane."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    prev_last = pltpu.roll(
-        pltpu.roll(v, shift=1, axis=1)[:, :1], shift=1, axis=0
-    )  # (8, 1): sublane s <- sublane s-1's last lane (s=0: junk)
-    sub = jax.lax.broadcasted_iota(jnp.int32, prev_last.shape, 0)
-    fillv = jnp.where(sub == 0, fill, prev_last)
-    lane = jax.lax.broadcasted_iota(jnp.int32, v.shape, 1)
-    return jnp.where(lane == 0, fillv, pltpu.roll(v, shift=1, axis=1))
-
-
-def _fold_cummax(v):
-    """Global-lane-order cummax of a folded (8, Wf) value: per-sublane
-    lane scan, then fold in the exclusive prefix of sublane totals."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    P, Wf = v.shape
-    a = _roll_cummax(v)                      # within-sublane inclusive scan
-    t = pltpu.roll(a, shift=1, axis=1)[:, :1]  # (8,1) block totals
-    sub = jax.lax.broadcasted_iota(jnp.int32, (P, 1), 0)
-    # exclusive prefix over sublanes: e[s] = max(t[0..s-1])
-    e = jnp.where(sub == 0, NEG, pltpu.roll(t, shift=1, axis=0))
-    sh = 1
-    while sh < P:
-        shifted = jnp.where(sub < sh, NEG, pltpu.roll(e, shift=sh, axis=0))
-        e = jnp.maximum(e, shifted)
-        sh *= 2
-    return jnp.maximum(a, e)
-
-
-def _stack_rows(rows, dtype):
-    """List of gs (P, W) values -> (P, gs, W) without tpu.concatenate
-    (iota-select; concat of P == 1 operands fails to lower)."""
-    B, W = rows[0].shape
-    q_iota = jax.lax.broadcasted_iota(jnp.int32, (B, len(rows), W), 1)
-    out = jnp.zeros((B, len(rows), W), dtype)
-    for qi, rv in enumerate(rows):
-        out = jnp.where(q_iota == qi, rv[:, None, :].astype(dtype), out)
-    return out
-
-
-def _make_block_kernel(*, mode, og, eg, so, se, sent, B, K, W, emit_tb):
-    """Pallas per-shard row-block kernel: K striped DP rows entirely
-    on-chip (VERDICT r1 weak #5 — the shard rows were pure JAX).  Exactly
-    the cell rules of the JAX path: both compile _row_cells.
-
-    Mosaic legality: for 3-D refs shaped (B, K, W) the tiled dims are
-    (K, W), so a per-row dynamic index on dim 1 must be provably aligned
-    to the sublane tile (8 for f32, 32 for uint8).  Rows are therefore
-    processed in groups of 8 — group loads/stores at offset g*8 are
-    provable, the 8 inner row slices are static — and the traceback rows
-    are emitted as int32 (sublane tile 8, not 32) and narrowed to uint8
-    outside the kernel."""
-    gs = 8 if K % 8 == 0 else K
-    assert K % gs == 0, (K, gs)
-
-    from jax.experimental import pallas as pl
-
-    def kernel(*refs):
-        it = iter(refs)
-        scal_ref = next(it)   # (1, 4) SMEM: [i_start, col0, is_dev0, 0]
-        n_ref = next(it)      # (B, 1) i32
-        m_ref = next(it)
-        s_ref = next(it)      # (B, K, W) f32
-        ib_ref = next(it)     # (B, K, 4) f32 inbox (left edges per row)
-        ab_ref = next(it)     # (B, 4) f32 above edge [M, X, Y, 0] at (i0, col0)
-        icm_ref = next(it)    # (B, W) carries in
-        icx_ref = next(it)
-        icy_ref = next(it)
-        irb_ref = next(it)    # (B, W) f32 running best (per lane)
-        irbi_ref = next(it)   # (B, W) i32 running best row
-        iacc_ref = next(it)   # (B, 4) f32 final-cell accumulator (padded)
-        ocm_ref = next(it)
-        ocx_ref = next(it)
-        ocy_ref = next(it)
-        ob_ref = next(it)     # (B, K, 4) outbox (right edges per row)
-        orb_ref = next(it)
-        orbi_ref = next(it)
-        oacc_ref = next(it)
-        otb_ref = next(it) if emit_tb else None
-
-        i_start = scal_ref[0, 0]
-        col0 = scal_ref[0, 1]
-        is_dev0 = scal_ref[0, 2] == 1
-        nvec = n_ref[:, :]
-        mvec = m_ref[:, :]
-        lane = jax.lax.broadcasted_iota(jnp.int32, (B, W), 1)
-        jg = col0 + lane + 1
-        jgf = jg.astype(jnp.float32)
-        valid_j = jg <= mvec
-
-        def lscf(i):
-            return i.astype(jnp.float32) * se + (so - se)
-
-        def closed_edge(i):
-            li = jnp.broadcast_to(lscf(i), (B, 1))
-            return (li + sent, li + sent, li,
-                    jnp.full((B, 1), NEG, jnp.float32))
-
-        def closed_above(i):
-            li = jnp.broadcast_to(lscf(i), (B, 1))
-            at0 = i == 0
-            return (
-                jnp.where(at0, 0.0, li + sent),
-                jnp.where(at0, -1.0, li + sent),
-                jnp.where(at0, -1.0, li),
-            )
-
-        def group(g, st):
-            ibs = ib_ref[:, pl.ds(g * gs, gs), :]   # (B, gs, 4)
-            sbs = s_ref[:, pl.ds(g * gs, gs), :]    # (B, gs, W)
-            ob_rows = []
-            tb_rows = []
-            for q in range(gs):
-                cm, cx, cy, abm, abx, aby, rb, rbi, acc = st
-                i = i_start + g * gs + q + 1
-                cem, cex, cey, cec = closed_edge(i)
-                ibq = ibs[:, q, :]  # (B, 4)
-                ebm = jnp.where(is_dev0, cem, ibq[:, 0:1])
-                ebx = jnp.where(is_dev0, cex, ibq[:, 1:2])
-                eby = jnp.where(is_dev0, cey, ibq[:, 2:3])
-                ebc = jnp.where(is_dev0, cec, ibq[:, 3:4])
-                vm, vx, vy, c, tb_row = _row_cells(
-                    mode, og, eg, so, se, sent, i, jg, jgf,
-                    sbs[:, q, :], cm, cx, cy,
-                    ebm, ebx, eby, ebc, abm, abx, aby,
-                    nvec, mvec, emit_tb,
-                    cummax_fn=_roll_cummax,
-                    shift_fn=_roll_shift_right,
-                )
-                lane4 = jax.lax.broadcasted_iota(jnp.int32, (B, 4), 1)
-                ob_rows.append(
-                    jnp.where(
-                        lane4 == 0, _last_lane(vm),
-                        jnp.where(
-                            lane4 == 1, _last_lane(vx),
-                            jnp.where(lane4 == 2, _last_lane(vy),
-                                      _last_lane(c)),
-                        ),
-                    )
-                )
-                if emit_tb:
-                    tb_rows.append(tb_row.astype(jnp.int32))
-                if mode == LOCAL:
-                    masked = jnp.where(valid_j & (i <= nvec), vm, NEG)
-                    upd = masked > rb  # strict `>`: first (smallest) i wins
-                    rb = jnp.where(upd, masked, rb)
-                    rbi = jnp.where(upd, i, rbi)
-                else:
-                    take = (i == nvec) & (jg == mvec)
-                    z = jnp.zeros((B, 1), jnp.float32)
-                    acc = acc + jnp.concatenate(
-                        [
-                            jnp.sum(jnp.where(take, vm, 0.0), axis=1,
-                                    keepdims=True),
-                            jnp.sum(jnp.where(take, vx, 0.0), axis=1,
-                                    keepdims=True),
-                            jnp.sum(jnp.where(take, vy, 0.0), axis=1,
-                                    keepdims=True),
-                            z,
-                        ],
-                        axis=1,
-                    )
-                cam, cax, cay = closed_above(i)
-                abm = jnp.where(is_dev0, cam, ibq[:, 0:1])
-                abx = jnp.where(is_dev0, cax, ibq[:, 1:2])
-                aby = jnp.where(is_dev0, cay, ibq[:, 2:3])
-                st = (vm, vx, vy, abm, abx, aby, rb, rbi, acc)
-            ob_ref[:, pl.ds(g * gs, gs), :] = _stack_rows(ob_rows, jnp.float32)
-            if emit_tb:
-                otb_ref[:, pl.ds(g * gs, gs), :] = _stack_rows(
-                    tb_rows, jnp.int32
-                )
-            return st
-
-        # device 0's carried above-edge is junk (it ppermutes from the last
-        # device); re-apply the closed form at (i_start, 0), exactly as the
-        # JAX row path re-guards with is_dev0 at use time
-        ca_m, ca_x, ca_y = closed_above(i_start)
-        st0 = (
-            icm_ref[:, :], icx_ref[:, :], icy_ref[:, :],
-            jnp.where(is_dev0, ca_m, ab_ref[:, 0:1]),
-            jnp.where(is_dev0, ca_x, ab_ref[:, 1:2]),
-            jnp.where(is_dev0, ca_y, ab_ref[:, 2:3]),
-            irb_ref[:, :], irbi_ref[:, :], iacc_ref[:, :],
-        )
-        cm, cx, cy, _, _, _, rb, rbi, acc = jax.lax.fori_loop(
-            0, K // gs, group, st0, unroll=False
-        )
-        ocm_ref[:, :] = cm
-        ocx_ref[:, :] = cx
-        ocy_ref[:, :] = cy
-        orb_ref[:, :] = rb
-        orbi_ref[:, :] = rbi
-        oacc_ref[:, :] = acc
-
-    return kernel
-
-
-def _make_block_kernel_folded(*, mode, og, eg, so, se, sent, K, Wf, emit_tb):
-    """Sublane-folded variant of _make_block_kernel for B == 1 shards.
-
-    Single-pair shards run every (1, W) row op on one of the VPU's 8
-    sublanes; folding the shard onto (8, Wf = W // 8) — sublane s carries
-    global lanes [s*Wf, (s+1)*Wf) — fills the register file and cuts the
-    vector-op count ~8x.  The shift and cummax use the _fold_* helpers
-    (cross-sublane carry / two-level blocked scan); everything else is the
-    same _row_cells rules, bit-identical by construction.
-
-    Ref layouts put the row index on an UNTILED leading axis (legal
-    dynamic indexing, no group alignment needed): s (K, 8, Wf),
-    inbox/outbox (K, 1, 4), tb out (K, 8, Wf) int32.  (A variant that
-    folded S in-kernel via 8 strided DMAs was tried and is NOT possible:
-    the VMEM target view at sublane chunk j is not tile-aligned and
-    Mosaic rejects the dma_start — the shard folds once in XLA before
-    the scan instead.)"""
-
-    def kernel(*refs):
-        it = iter(refs)
-        scal_ref = next(it)   # (1, 4) SMEM: [i_start, col0, is_dev0, blk]
-        n_ref = next(it)      # (1, 1) i32
-        m_ref = next(it)
-        s_ref = next(it)      # (K, 8, Wf) f32 — this block's folded rows
-        ib_ref = next(it)     # (K, 1, 4) f32 inbox (left edges per row)
-        ab_ref = next(it)     # (1, 4) f32 above edge at (i0, col0)
-        icm_ref = next(it)    # (8, Wf) carries in
-        icx_ref = next(it)
-        icy_ref = next(it)
-        irb_ref = next(it)    # (8, Wf) f32 running best (per lane)
-        irbi_ref = next(it)   # (8, Wf) i32 running best row
-        iacc_ref = next(it)   # (1, 4) f32 final-cell accumulator (padded)
-        ocm_ref = next(it)
-        ocx_ref = next(it)
-        ocy_ref = next(it)
-        ob_ref = next(it)     # (K, 1, 4) outbox (right edges per row)
-        orb_ref = next(it)
-        orbi_ref = next(it)
-        oacc_ref = next(it)
-        otb_ref = next(it) if emit_tb else None
-
-        i_start = scal_ref[0, 0]
-        col0 = scal_ref[0, 1]
-        is_dev0 = scal_ref[0, 2] == 1
-        nvec = n_ref[:, :]   # (1, 1) — broadcasts against folded (8, Wf)
-        mvec = m_ref[:, :]
-        sub = jax.lax.broadcasted_iota(jnp.int32, (8, Wf), 0)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (8, Wf), 1)
-        jg = col0 + sub * Wf + lane + 1   # global column, sublane-major
-        jgf = jg.astype(jnp.float32)
-        valid_j = jg <= mvec
-
-        def lscf(i):
-            return i.astype(jnp.float32) * se + (so - se)
-
-        def closed_edge(i):
-            li = jnp.broadcast_to(lscf(i), (1, 1))
-            return (li + sent, li + sent, li,
-                    jnp.full((1, 1), NEG, jnp.float32))
-
-        def closed_above(i):
-            li = jnp.broadcast_to(lscf(i), (1, 1))
-            at0 = i == 0
-            return (
-                jnp.where(at0, 0.0, li + sent),
-                jnp.where(at0, -1.0, li + sent),
-                jnp.where(at0, -1.0, li),
-            )
-
-        def body(q, st):
-            cm, cx, cy, abm, abx, aby, rb, rbi, acc = st
-            i = i_start + q + 1
-            cem, cex, cey, cec = closed_edge(i)
-            ibq = ib_ref[q]  # (1, 4)
-            ebm = jnp.where(is_dev0, cem, ibq[:, 0:1])
-            ebx = jnp.where(is_dev0, cex, ibq[:, 1:2])
-            eby = jnp.where(is_dev0, cey, ibq[:, 2:3])
-            ebc = jnp.where(is_dev0, cec, ibq[:, 3:4])
-            vm, vx, vy, c, tb_row = _row_cells(
-                mode, og, eg, so, se, sent, i, jg, jgf,
-                s_ref[q], cm, cx, cy,
-                ebm, ebx, eby, ebc, abm, abx, aby,
-                nvec, mvec, emit_tb,
-                cummax_fn=_fold_cummax,
-                shift_fn=_fold_shift_right,
-            )
-            lane4 = jax.lax.broadcasted_iota(jnp.int32, (1, 4), 1)
-            ob_ref[q] = jnp.where(
-                lane4 == 0, _fold_last_lane(vm),
-                jnp.where(
-                    lane4 == 1, _fold_last_lane(vx),
-                    jnp.where(lane4 == 2, _fold_last_lane(vy),
-                              _fold_last_lane(c)),
-                ),
-            )
-            if emit_tb:
-                otb_ref[q] = tb_row.astype(jnp.int32)
-            if mode == LOCAL:
-                masked = jnp.where(valid_j & (i <= nvec), vm, NEG)
-                upd = masked > rb  # strict `>`: first (smallest) i wins
-                rb = jnp.where(upd, masked, rb)
-                rbi = jnp.where(upd, i, rbi)
-            else:
-                take = (i == nvec) & (jg == mvec)
-                lane4a = jax.lax.broadcasted_iota(jnp.int32, (1, 4), 1)
-                sm_ = jnp.sum(jnp.where(take, vm, 0.0)).reshape(1, 1)
-                sx_ = jnp.sum(jnp.where(take, vx, 0.0)).reshape(1, 1)
-                sy_ = jnp.sum(jnp.where(take, vy, 0.0)).reshape(1, 1)
-                acc = acc + jnp.where(
-                    lane4a == 0, sm_,
-                    jnp.where(lane4a == 1, sx_,
-                              jnp.where(lane4a == 2, sy_,
-                                        jnp.zeros((1, 1), jnp.float32))),
-                )
-            cam, cax, cay = closed_above(i)
-            abm = jnp.where(is_dev0, cam, ibq[:, 0:1])
-            abx = jnp.where(is_dev0, cax, ibq[:, 1:2])
-            aby = jnp.where(is_dev0, cay, ibq[:, 2:3])
-            return (vm, vx, vy, abm, abx, aby, rb, rbi, acc)
-
-        ca_m, ca_x, ca_y = closed_above(i_start)
-        st0 = (
-            icm_ref[:, :], icx_ref[:, :], icy_ref[:, :],
-            jnp.where(is_dev0, ca_m, ab_ref[:, 0:1]),
-            jnp.where(is_dev0, ca_x, ab_ref[:, 1:2]),
-            jnp.where(is_dev0, ca_y, ab_ref[:, 2:3]),
-            irb_ref[:, :], irbi_ref[:, :], iacc_ref[:, :],
-        )
-        cm, cx, cy, _, _, _, rb, rbi, acc = jax.lax.fori_loop(
-            0, K, body, st0, unroll=False
-        )
-        ocm_ref[:, :] = cm
-        ocx_ref[:, :] = cx
-        ocy_ref[:, :] = cy
-        orb_ref[:, :] = rb
-        orbi_ref[:, :] = rbi
-        oacc_ref[:, :] = acc
-
-    return kernel
-
-
-def _block_pallas_call_folded(
-    kernel, *, K, Wf, emit_tb, interpret,
-    scal, nv2, mv2, Sblk, inbox, above, cm, cx, cy, rb, rbi, acc,
-):
-    """pallas_call wrapper for the folded kernel.  All array args arrive
-    in the folded layouts (see _make_block_kernel_folded)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    vmem = lambda: pl.BlockSpec(memory_space=pltpu.VMEM)
-    out_shape = [
-        jax.ShapeDtypeStruct((8, Wf), jnp.float32),   # cm
-        jax.ShapeDtypeStruct((8, Wf), jnp.float32),   # cx
-        jax.ShapeDtypeStruct((8, Wf), jnp.float32),   # cy
-        jax.ShapeDtypeStruct((K, 1, 4), jnp.float32),  # outbox
-        jax.ShapeDtypeStruct((8, Wf), jnp.float32),   # rb
-        jax.ShapeDtypeStruct((8, Wf), jnp.int32),     # rbi
-        jax.ShapeDtypeStruct((1, 4), jnp.float32),    # acc
-    ]
-    if emit_tb:
-        out_shape.append(jax.ShapeDtypeStruct((K, 8, Wf), jnp.int32))
-    in_specs = [
-        pl.BlockSpec(memory_space=pltpu.SMEM),
-    ] + [vmem() for _ in range(11)]
-    outs = pl.pallas_call(
-        kernel,
-        in_specs=in_specs,
-        out_specs=tuple(vmem() for _ in out_shape),
-        out_shape=tuple(out_shape),
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=96 << 20),
-        interpret=interpret,
-    )(scal, nv2, mv2, Sblk, inbox, above, cm, cx, cy, rb, rbi, acc)
-    return outs
-
-
-def _make_grid_kernel_folded(*, mode, og, eg, so, se, sent, K, Wf,
-                             C, track_arg):
-    """Single-device (D == 1) folded fill as ONE pallas grid call.
-
-    The multi-device wavefront needs an XLA-level scan so edge carries
-    can ppermute between devices after every block; on one device that
-    scan only adds overhead — per step it dynamic-slices a (K, 8, Wf)
-    S block (16 MB at 2048x65536), reshapes five carry slabs
-    (1, W) <-> (8, Wf) and where-selects them, all on the XLA streaming
-    path (~1 ms/step here vs ~0.1 ms of kernel compute,
-    BENCH_SUITE_r02).  This variant is the ops/pallas_dp.fill_tiled
-    architecture instead: grid over row blocks, S blocks DMA'd by
-    BlockSpec (overlapped by the pallas pipeline), carries resident in
-    VMEM scratch, running best / acc resident in revisited output
-    blocks.  Cell rules are the shared _row_cells — bit-identical to
-    the scan path by construction (tests/test_seq_tiled.py).
-    """
-    from jax.experimental import pallas as pl
-
-    def kernel(*refs):
-        it = iter(refs)
-        n_ref = next(it)      # (1, 1) i32
-        m_ref = next(it)
-        s_ref = next(it)      # (K, 8, Wf) f32 — this block's folded rows
-        orb_ref = next(it)    # (8, Wf) f32 running best (revisited)
-        orbi_ref = next(it)   # (8, Wf) i32 running best row (revisited)
-        oacc_ref = next(it)   # (1, 4) f32 final-cell accumulator
-        if C:
-            ckm_ref = next(it)  # (1, 8, Wf) checkpoint block
-            ckx_ref = next(it)
-            cky_ref = next(it)
-        cm_s = next(it)       # scratch (8, Wf) f32 carries
-        cx_s = next(it)
-        cy_s = next(it)
-
-        k = pl.program_id(0)
-        i_start = k * K
-        nvec = jnp.full((1, 1), n_ref[0, 0], jnp.int32)  # SMEM: scalar read
-        mvec = jnp.full((1, 1), m_ref[0, 0], jnp.int32)
-        sub = jax.lax.broadcasted_iota(jnp.int32, (8, Wf), 0)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (8, Wf), 1)
-        jg = sub * Wf + lane + 1  # global column (col0 = 0: one device)
-        jgf = jg.astype(jnp.float32)
-        valid_j = jg <= mvec
-        jgf_pe = None if mode == GLOCAL else (jgf - 1.0) * eg
-
-        def lscf(i):
-            return i.astype(jnp.float32) * se + (so - se)
-
-        def closed_edge(i):
-            li = jnp.broadcast_to(lscf(i), (1, 1))
-            return (li + sent, li + sent, li,
-                    jnp.full((1, 1), NEG, jnp.float32))
-
-        def closed_above(i):
-            li = jnp.broadcast_to(lscf(i), (1, 1))
-            at0 = i == 0
-            return (
-                jnp.where(at0, 0.0, li + sent),
-                jnp.where(at0, -1.0, li + sent),
-                jnp.where(at0, -1.0, li),
-            )
-
-        @pl.when(k == 0)
-        def _init():
-            # row-0 carries, closed form (rs:100-108)
-            l0 = lscf(jg)
-            cm_s[:, :] = l0 + sent
-            cx_s[:, :] = l0
-            cy_s[:, :] = l0 + sent
-            orb_ref[:, :] = jnp.full((8, Wf), NEG, jnp.float32)
-            orbi_ref[:, :] = jnp.full((8, Wf), BIGI, jnp.int32)
-            oacc_ref[:, :] = jnp.zeros((1, 4), jnp.float32)
-
-        def body(q, st):
-            cm, cx, cy, rb, rbi, acc = st
-            i = i_start + q + 1
-            ebm, ebx, eby, ebc = closed_edge(i)
-            abm, abx, aby = closed_above(i - 1)
-            srow = s_ref[q]
-            if srow.dtype != jnp.float32:  # int8 S: widen in-register
-                srow = srow.astype(jnp.float32)
-            vm, vx, vy, _, _ = _row_cells(
-                mode, og, eg, so, se, sent, i, jg, jgf,
-                srow, cm, cx, cy,
-                ebm, ebx, eby, ebc, abm, abx, aby,
-                nvec, mvec, False,
-                cummax_fn=_fold_cummax,
-                shift_fn=_fold_shift_right,
-                jgf_pe=jgf_pe,
-            )
-            if mode == LOCAL:
-                masked = jnp.where(valid_j & (i <= nvec), vm, NEG)
-                if track_arg:
-                    upd = masked > rb  # strict: first (smallest) i wins
-                    rb = jnp.where(upd, masked, rb)
-                    rbi = jnp.where(upd, i, rbi)
-                else:
-                    rb = jnp.maximum(rb, masked)
-            else:
-                take = (i == nvec) & (jg == mvec)
-                lane4 = jax.lax.broadcasted_iota(jnp.int32, (1, 4), 1)
-                sm_ = jnp.sum(jnp.where(take, vm, 0.0)).reshape(1, 1)
-                sx_ = jnp.sum(jnp.where(take, vx, 0.0)).reshape(1, 1)
-                sy_ = jnp.sum(jnp.where(take, vy, 0.0)).reshape(1, 1)
-                acc = acc + jnp.where(
-                    lane4 == 0, sm_,
-                    jnp.where(lane4 == 1, sx_,
-                              jnp.where(lane4 == 2, sy_,
-                                        jnp.zeros((1, 1), jnp.float32))),
-                )
-            return (vm, vx, vy, rb, rbi, acc)
-
-        st0 = (cm_s[:, :], cx_s[:, :], cy_s[:, :],
-               orb_ref[:, :], orbi_ref[:, :], oacc_ref[:, :])
-        # rows in groups of R with the group body unrolled (the production
-        # row kernel's structure): one-row loop bodies leave Mosaic no
-        # instruction-level parallelism to schedule
-        R = 8 if K % 8 == 0 else 1
-
-        def group(g, st):
-            for q8 in range(R):
-                st = body(g * R + q8, st)
-            return st
-
-        cm, cx, cy, rb, rbi, acc = jax.lax.fori_loop(
-            0, K // R, group, st0, unroll=False
-        )
-        cm_s[:, :] = cm
-        cx_s[:, :] = cx
-        cy_s[:, :] = cy
-        orb_ref[:, :] = rb
-        orbi_ref[:, :] = rbi
-        oacc_ref[:, :] = acc
-        if C:
-            @pl.when(((k + 1) * K) % C == 0)
-            def _ck():
-                ckm_ref[0] = cm
-                ckx_ref[0] = cx
-                cky_ref[0] = cy
-
-    return kernel
-
-
-def _fold_grid_fill(
-    S_f, nv2, mv2, *, mode, og, eg, so, se, sent, K, Wf, NP,
-    C=None, track_arg=False, interpret=False,
-):
-    """Run the D == 1 folded grid kernel.  Returns (rb (8, Wf) f32,
-    rbi (8, Wf) i32, acc (1, 4) f32[, ckm, ckx, cky (NCK, 8, Wf)])."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    NB = NP // K
-    NCK = (NP // C) if C else 0
-    kernel = _make_grid_kernel_folded(
-        mode=mode, og=og, eg=eg, so=so, se=se, sent=sent, K=K, Wf=Wf,
-        C=C, track_arg=track_arg,
-    )
-    in_specs = [
-        pl.BlockSpec((1, 1), lambda k: (0, 0), memory_space=pltpu.SMEM),
-        pl.BlockSpec((1, 1), lambda k: (0, 0), memory_space=pltpu.SMEM),
-        pl.BlockSpec((K, 8, Wf), lambda k: (k, 0, 0)),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((8, Wf), jnp.float32),
-        jax.ShapeDtypeStruct((8, Wf), jnp.int32),
-        jax.ShapeDtypeStruct((1, 4), jnp.float32),
-    ]
-    out_specs = [
-        pl.BlockSpec((8, Wf), lambda k: (0, 0)),
-        pl.BlockSpec((8, Wf), lambda k: (0, 0)),
-        pl.BlockSpec((1, 4), lambda k: (0, 0)),
-    ]
-    if C:
-        # checkpoint block index advances when a segment closes; the
-        # write itself is pl.when-gated to the closing step, so each
-        # block is set exactly once before it flushes (C % K == 0)
-        ck_idx = lambda k: (jnp.clip((k + 1) * K // C - 1, 0, NCK - 1),
-                            0, 0)
-        for _ in range(3):
-            out_shape.append(
-                jax.ShapeDtypeStruct((NCK, 8, Wf), jnp.float32)
-            )
-            out_specs.append(pl.BlockSpec((1, 8, Wf), ck_idx))
-    return pl.pallas_call(
-        kernel,
-        grid=(NB,),
-        in_specs=in_specs,
-        out_specs=tuple(out_specs),
-        out_shape=tuple(out_shape),
-        scratch_shapes=[pltpu.VMEM((8, Wf), jnp.float32)] * 3,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=96 << 20,
-        ),
-        interpret=interpret,
-    )(nv2, mv2, S_f)
-
-
-def _block_pallas_call(
-    kernel, *, B, K, W, emit_tb, interpret,
-    scal, nv2, mv2, Sblk, inbox, above, cm, cx, cy, rb, rbi, acc,
-):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    vmem = lambda: pl.BlockSpec(memory_space=pltpu.VMEM)
-    out_shape = [
-        jax.ShapeDtypeStruct((B, W), jnp.float32),   # cm
-        jax.ShapeDtypeStruct((B, W), jnp.float32),   # cx
-        jax.ShapeDtypeStruct((B, W), jnp.float32),   # cy
-        jax.ShapeDtypeStruct((B, K, 4), jnp.float32),  # outbox
-        jax.ShapeDtypeStruct((B, W), jnp.float32),   # rb
-        jax.ShapeDtypeStruct((B, W), jnp.int32),     # rbi
-        jax.ShapeDtypeStruct((B, 4), jnp.float32),   # acc
-    ]
-    if emit_tb:
-        # int32, not uint8: the kernel's grouped row stores are aligned to
-        # the f32/i32 sublane tile (8); uint8 would demand 32 (see
-        # _make_block_kernel).  Narrowed to uint8 by the caller.
-        out_shape.append(jax.ShapeDtypeStruct((B, K, W), jnp.int32))
-    in_specs = [
-        pl.BlockSpec(memory_space=pltpu.SMEM),
-    ] + [vmem() for _ in range(11)]
-    outs = pl.pallas_call(
-        kernel,
-        in_specs=in_specs,
-        out_specs=tuple(vmem() for _ in out_shape),
-        out_shape=tuple(out_shape),
-        # wide single-device shards (64k+ lanes) carry a per-W working set
-        # (carries + cummax temporaries) past the default 16 MB scoped
-        # limit; v5e has 128 MB of VMEM
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=96 << 20),
-        interpret=interpret,
-    )(scal, nv2, mv2, Sblk, inbox, above, cm, cx, cy, rb, rbi, acc)
-    return outs
-
-
 def _build_local_fill(
     *, mode, og, eg, B, NP, MP, K, D, ax,
     ckpt_rows=None, emit_tb=False, seeded=False, track_arg=False,
-    rows_impl="jax", interpret=False, grid_only=False,
 ):
     """Build the per-shard fill function for ``shard_map``.
 
@@ -868,20 +174,8 @@ def _build_local_fill(
       * plain score fill: no flags (striped_fill)
       * checkpointed fill: ckpt_rows + track_arg (striped_fill_ckpt)
       * band re-fill: seeded + emit_tb (striped_band_tb)
-
-    rows_impl: "jax" (lax.scan rows) or "pallas" (per-shard row-block
-    kernel — same _row_cells rules, on-chip carries).
     """
     W = MP // D
-    if rows_impl == "pallas":
-        # VMEM budget for the block kernel: the S block (f32) plus, when
-        # tracing, the int32 tb block are the K-proportional buffers; halve
-        # K until they fit the ~16 MB scoped-vmem limit with headroom
-        # (halving preserves K | NP and K | ckpt_rows).  Wide single-device
-        # shards (e.g. 64k columns) land here.
-        budget = 8 << 20
-        while K > 8 and 4 * B * K * W * (2 if emit_tb else 1) > budget:
-            K //= 2
     NB = NP // K
     T = NB + D - 1
     C = ckpt_rows
@@ -891,84 +185,6 @@ def _build_local_fill(
     else:
         so, se = 0.0, 0.0
     sent = 10.0 * og + 10.0 * eg
-
-    # D == 1 fast path: the whole fill as one pallas grid call (no
-    # XLA-level block scan; see _make_grid_kernel_folded).  Same fold
-    # eligibility as below, plus grid-expressible checkpoint cadence.
-    grid_path = (
-        rows_impl == "pallas" and D == 1 and B == 1 and not seeded
-        and not emit_tb and K % 8 == 0 and W % (8 * FOLD_LANE) == 0
-        and W >= FOLD_MIN_W
-        and (not C or (C % K == 0 and NP % C == 0))
-    )
-    if grid_only and not grid_path:
-        # folded / int8 S is only consumed by the grid kernel; falling
-        # into the block-scan path with it would fail with an opaque
-        # shape error deep inside local_fill
-        raise ValueError(
-            "folded or non-f32 S requires the D==1 grid kernel: need "
-            "rows='pallas', B==1, block_rows%8==0 (after VMEM halving: "
-            f"K={K}), W%{8 * FOLD_LANE}==0, W>={FOLD_MIN_W}, and "
-            f"checkpoint cadence C%K==0, NP%C==0 (got D={D}, B={B}, "
-            f"W={W}, C={C}, seeded={seeded}, emit_tb={emit_tb})"
-        )
-
-    def grid_fill(S_l, n_g, m_g):
-        Wf = W // 8
-        if S_l.ndim == 3 and S_l.shape == (NP, 8, Wf):
-            S_f = S_l  # pre-folded (fold_S): no relayout pass at all
-        else:
-            # the XLA relayout runs at streaming speed (~25 ms for a
-            # 512 MB f32 S — 6x the fill itself); callers that can,
-            # pre-fold (fold once, reuse for ckpt fill + band refills)
-            # or pass int8 S (4x fewer relayout bytes)
-            S_f = S_l.reshape(NP, 8, Wf)
-        nv2 = n_g.reshape(1, 1).astype(jnp.int32)
-        mv2 = m_g.reshape(1, 1).astype(jnp.int32)
-        res = _fold_grid_fill(
-            S_f, nv2, mv2, mode=mode, og=og, eg=eg, so=so, se=se,
-            sent=sent, K=K, Wf=Wf, NP=NP, C=C, track_arg=track_arg,
-            interpret=interpret,
-        )
-        rb, rbi, acc = res[0], res[1], res[2]
-        outs = []
-        if mode == LOCAL:
-            rbf = rb.reshape(B, W)
-            if track_arg:
-                rbif = rbi.reshape(B, W)
-                jgr = jnp.arange(1, W + 1, dtype=jnp.int32)
-                gmax = jnp.max(rbf, axis=1)
-                cand = rbf == gmax[:, None]
-                ci = jnp.where(cand, rbif, BIGI)
-                min_i = jnp.min(ci, axis=1)
-                cj = jnp.where(
-                    cand & (rbif == min_i[:, None]), jgr[None, :], BIGI
-                )
-                min_j = jnp.min(cj, axis=1)
-                stats = jnp.stack(
-                    [gmax, min_i.astype(jnp.float32),
-                     min_j.astype(jnp.float32)]
-                    + [jnp.zeros((B,), jnp.float32)] * 5,
-                    axis=1,
-                )
-                outs.append(stats)
-            else:
-                outs.append(jnp.max(rbf, axis=1))
-        else:
-            fin = jnp.broadcast_to(acc[:, :3], (B, 3))
-            if track_arg:
-                zeros = jnp.zeros((B, 3), jnp.float32)
-                outs.append(jnp.concatenate(
-                    [zeros, fin, jnp.zeros((B, 2), jnp.float32)], axis=1
-                ))
-            else:
-                outs.append(fin)
-        if C:
-            outs.extend(r.reshape(B, NCK, W) for r in res[3:6])
-        return tuple(outs) if len(outs) > 1 else outs[0]
-
-    if grid_path:
-        return grid_fill
 
     def local_fill(S_l, n_g, m_g, *rest):
         if seeded:
@@ -1032,29 +248,9 @@ def _build_local_fill(
 
         jg2 = jnp.broadcast_to(jg[None, :], (B, W))
         jgf2 = jnp.broadcast_to(jgf[None, :], (B, W))
-        # single-pair shards fold onto the sublane axis (8x VPU occupancy);
-        # W % (8*FOLD_LANE) keeps the 8 per-chunk fold DMAs lane-aligned
-        fold = (
-            rows_impl == "pallas" and B == 1 and K % 8 == 0
-            and W % (8 * FOLD_LANE) == 0 and W >= FOLD_MIN_W
-        )
-        Wf = W // 8
-        if rows_impl != "pallas":
-            blk_kernel = None
-        elif fold:
-            blk_kernel = _make_block_kernel_folded(
-                mode=mode, og=og, eg=eg, so=so, se=se, sent=sent,
-                K=K, Wf=Wf, emit_tb=emit_tb,
-            )
-        else:
-            blk_kernel = _make_block_kernel(
-                mode=mode, og=og, eg=eg, so=so, se=se, sent=sent,
-                B=B, K=K, W=W, emit_tb=emit_tb,
-            )
 
         def row_math(i, srow, cm, cx, cy, eb, eb_above):
-            """One DP row over the local lanes — delegates to the shared
-            _row_cells (the same rules the Pallas block kernel compiles).
+            """One DP row over the local lanes (_row_cells).
 
             eb: (B, 4) [M, X, Y, C] at (i, col0); C = running max of
                 H[0..col0-1] (global domain).
@@ -1073,24 +269,13 @@ def _build_local_fill(
             )
             return vm, vx, vy, edge, tb_row
 
-        # fold S once, before the scan (one relayout pass over the shard);
-        # folding per block would pay the same pass T times over
-        S_f = S_l.reshape(NP, 8, Wf) if fold else None
-
         def step(carry, t):
             (cm, cx, cy, inbox, above, runbest, runbest_i, acc,
              cks, tb_buf) = carry
             r = t - d
             active = (r >= 0) & (r < NB)
             r_c = jnp.clip(r, 0, NB - 1)
-            if fold:
-                Sblk = jax.lax.dynamic_slice(
-                    S_f, (r_c * K, 0, 0), (K, 8, Wf)
-                )
-            else:
-                Sblk = jax.lax.dynamic_slice(
-                    S_l, (0, r_c * K, 0), (B, K, W)
-                )
+            Sblk = jax.lax.dynamic_slice(S_l, (0, r_c * K, 0), (B, K, W))
 
             def row_body(rc, q):
                 cm, cx, cy, outbox, above_row, rb, rbi, a3, tbs = rc
@@ -1131,77 +316,20 @@ def _build_local_fill(
                 return (vm, vx, vy, outbox, next_above, rb, rbi,
                         a3, tbs), None
 
-            if rows_impl == "pallas":
-                scal = jnp.stack(
-                    [
-                        i0 + r_c * K,
-                        col0,
-                        is_dev0.astype(jnp.int32),
-                        jnp.int32(0),
-                    ]
-                ).reshape(1, 4).astype(jnp.int32)
-                above4 = jnp.concatenate(
-                    [above, jnp.zeros((B, 1), jnp.float32)], axis=1
+            outbox0 = jnp.zeros((B, K, 4), jnp.float32)
+            tbs0 = (
+                jnp.zeros((B, K, W), jnp.uint8)
+                if emit_tb
+                else jnp.zeros((), jnp.uint8)
+            )
+            (cm2, cx2, cy2, outbox, _, rb2, rbi2, a32, tbs), _ = (
+                jax.lax.scan(
+                    row_body,
+                    (cm, cx, cy, outbox0, above, runbest, runbest_i,
+                     acc, tbs0),
+                    jnp.arange(K),
                 )
-                acc4 = jnp.concatenate(
-                    [acc, jnp.zeros((B, 1), jnp.float32)], axis=1
-                )
-                if fold:
-                    outs = _block_pallas_call_folded(
-                        blk_kernel, K=K, Wf=Wf, emit_tb=emit_tb,
-                        interpret=interpret,
-                        scal=scal, nv2=nv.astype(jnp.int32),
-                        mv2=mv.astype(jnp.int32),
-                        Sblk=Sblk,
-                        inbox=inbox.reshape(K, 1, 4),
-                        above=above4, cm=cm.reshape(8, Wf),
-                        cx=cx.reshape(8, Wf), cy=cy.reshape(8, Wf),
-                        rb=runbest.reshape(8, Wf),
-                        rbi=runbest_i.reshape(8, Wf), acc=acc4,
-                    )
-                    cm2 = outs[0].reshape(B, W)
-                    cx2 = outs[1].reshape(B, W)
-                    cy2 = outs[2].reshape(B, W)
-                    outbox = outs[3].reshape(B, K, 4)
-                    rb2 = outs[4].reshape(B, W)
-                    rbi2 = outs[5].reshape(B, W)
-                    a32 = outs[6][:, :3]
-                    tbs = (
-                        outs[7].astype(jnp.uint8).reshape(B, K, W)
-                        if emit_tb
-                        else jnp.zeros((), jnp.uint8)
-                    )
-                else:
-                    outs = _block_pallas_call(
-                        blk_kernel, B=B, K=K, W=W, emit_tb=emit_tb,
-                        interpret=interpret,
-                        scal=scal, nv2=nv.astype(jnp.int32),
-                        mv2=mv.astype(jnp.int32), Sblk=Sblk, inbox=inbox,
-                        above=above4, cm=cm, cx=cx, cy=cy, rb=runbest,
-                        rbi=runbest_i, acc=acc4,
-                    )
-                    cm2, cx2, cy2, outbox, rb2, rbi2, a32 = outs[:7]
-                    a32 = a32[:, :3]
-                    tbs = (
-                        outs[7].astype(jnp.uint8)
-                        if emit_tb
-                        else jnp.zeros((), jnp.uint8)
-                    )
-            else:
-                outbox0 = jnp.zeros((B, K, 4), jnp.float32)
-                tbs0 = (
-                    jnp.zeros((B, K, W), jnp.uint8)
-                    if emit_tb
-                    else jnp.zeros((), jnp.uint8)
-                )
-                (cm2, cx2, cy2, outbox, _, rb2, rbi2, a32, tbs), _ = (
-                    jax.lax.scan(
-                        row_body,
-                        (cm, cx, cy, outbox0, above, runbest, runbest_i,
-                         acc, tbs0),
-                        jnp.arange(K),
-                    )
-                )
+            )
 
             cm = jnp.where(active, cm2, cm)
             cx = jnp.where(active, cx2, cx)
@@ -1335,60 +463,33 @@ def _build_local_fill(
     return local_fill
 
 
-def fold_S(S):
-    """(1, NP, MP) -> (NP, 8, MP//8) folded layout for the single-device
-    grid kernel (sublane s carries global columns [s*MP/8, (s+1)*MP/8)).
-    On host (numpy) this is a free view; folding once and passing the
-    result to striped_fill(..., folded=True) skips the per-call XLA
-    relayout (~25 ms per 512 MB f32)."""
-    B, NP, MP = S.shape
-    assert B == 1 and MP % 8 == 0, (B, MP)
-    if isinstance(S, np.ndarray):
-        return S.reshape(NP, 8, MP // 8)
-    return jnp.reshape(S, (NP, 8, MP // 8))
-
-
 @functools.partial(
-    jax.jit,
-    static_argnames=("mode", "og", "eg", "block_rows", "mesh", "rows",
-                     "interpret", "folded"),
+    jax.jit, static_argnames=("mode", "og", "eg", "block_rows", "mesh"),
 )
-def striped_fill(S, n, m, *, mode, og, eg, block_rows, mesh, rows="jax",
-                 interpret=False, folded=False):
+def striped_fill(S, n, m, *, mode, og, eg, block_rows, mesh):
     """Score a batch of pairs with the column axis sharded over ``mesh``.
 
     Args:
-      S: (B, NP, MP) dense substitution scores (sharded or shardable
-         as P(None, None, 'x'); MP must divide by the mesh size).  f32,
-         or int8 on the single-device grid path (widened in-register).
-         With ``folded=True`` (single-device only): the (NP, 8, MP//8)
-         layout from ``fold_S`` — skips the per-call relayout.
+      S: (B, NP, MP) dense f32 substitution scores (sharded or shardable
+         as P(None, None, 'x'); MP must divide by the mesh size).
       n, m: (B,) int32 true lengths.
       block_rows: wavefront granularity (rows per pipeline step).
     Returns:
       LOCAL: (B,) best scores.  GLOBAL/GLOCAL: (B, 3) final (M, X, Y) at
-      (n, m) — same contract as the kernel's stats[3:6].
+      (n, m) — same contract as the fill's stats[3:6].
     """
     D = mesh.devices.size
-    if folded:
-        NP, eight, Wf = S.shape
-        assert D == 1 and eight == 8, (S.shape, D)
-        MP, B = Wf * 8, 1
-    else:
-        B, NP, MP = S.shape
+    B, NP, MP = S.shape
     assert (MP // D) * D == MP, (MP, D)
     assert (NP // block_rows) * block_rows == NP, (NP, block_rows)
     ax = mesh.axis_names[0]
     fn = _build_local_fill(
         mode=mode, og=og, eg=eg, B=B, NP=NP, MP=MP, K=block_rows, D=D, ax=ax,
-        rows_impl=rows, interpret=interpret,
-        grid_only=folded or S.dtype != jnp.float32,
     )
-    in_spec = P(None, None, None) if folded else P(None, None, ax)
     return jax.shard_map(
         fn,
         mesh=mesh,
-        in_specs=(in_spec, P(None), P(None)),
+        in_specs=(P(None, None, ax), P(None), P(None)),
         out_specs=P(),
         check_vma=False,
     )(S, n, m)
@@ -1396,15 +497,13 @@ def striped_fill(S, n, m, *, mode, og, eg, block_rows, mesh, rows="jax",
 
 @functools.partial(
     jax.jit,
-    static_argnames=("mode", "og", "eg", "block_rows", "ckpt_rows", "mesh",
-                     "rows", "interpret"),
+    static_argnames=("mode", "og", "eg", "block_rows", "ckpt_rows", "mesh"),
 )
-def striped_fill_ckpt(S, n, m, *, mode, og, eg, block_rows, ckpt_rows, mesh,
-                      rows="jax", interpret=False):
+def striped_fill_ckpt(S, n, m, *, mode, og, eg, block_rows, ckpt_rows, mesh):
     """Striped score fill + exact argmax stats + carry checkpoints.
 
     Returns ``(stats, (ckm, ckx, cky))``: stats (B, 8) as in
-    ops/pallas_dp.fill_tiled ([best, best_i, best_j, fM, fX, fY, 0, 0]);
+    ops/fill.fill ([best, best_i, best_j, fM, fX, fY, 0, 0]);
     checkpoints (B, NP//ckpt_rows, MP) f32 sharded on columns — checkpoint k
     holds the carries after global row (k+1)*ckpt_rows.
     """
@@ -1417,8 +516,7 @@ def striped_fill_ckpt(S, n, m, *, mode, og, eg, block_rows, ckpt_rows, mesh,
     ax = mesh.axis_names[0]
     fn = _build_local_fill(
         mode=mode, og=og, eg=eg, B=B, NP=NP, MP=MP, K=K, D=D, ax=ax,
-        ckpt_rows=ckpt_rows, track_arg=True, rows_impl=rows,
-        interpret=interpret,
+        ckpt_rows=ckpt_rows, track_arg=True,
     )
     stats, ckm, ckx, cky = jax.shard_map(
         fn,
@@ -1432,12 +530,10 @@ def striped_fill_ckpt(S, n, m, *, mode, og, eg, block_rows, ckpt_rows, mesh,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("mode", "og", "eg", "block_rows", "mesh", "rows",
-                     "interpret"),
+    static_argnames=("mode", "og", "eg", "block_rows", "mesh"),
 )
 def striped_band_tb(
     S_band, n, m, i0, icm, icx, icy, *, mode, og, eg, block_rows, mesh,
-    rows="jax", interpret=False,
 ):
     """Re-fill a C-row band from checkpointed carries, emitting packed
     traceback pointer bytes across all shards.
@@ -1458,7 +554,7 @@ def striped_band_tb(
     ax = mesh.axis_names[0]
     fn = _build_local_fill(
         mode=mode, og=og, eg=eg, B=B, NP=C, MP=MP, K=K, D=D, ax=ax,
-        emit_tb=True, seeded=True, rows_impl=rows, interpret=interpret,
+        emit_tb=True, seeded=True,
     )
     _, tb = jax.shard_map(
         fn,
@@ -1475,12 +571,11 @@ def striped_band_tb(
 
 @functools.partial(
     jax.jit,
-    static_argnames=("mode", "og", "eg", "block_rows", "mesh", "rows",
-                     "interpret", "W", "C"),
+    static_argnames=("mode", "og", "eg", "block_rows", "mesh", "W", "C"),
 )
 def _striped_seg_windows(
     S, nv, mv, ckm, ckx, cky, m0, x0, y0, sk, bs, j0s,
-    *, mode, og, eg, block_rows, mesh, rows, interpret, W: int, C: int,
+    *, mode, og, eg, block_rows, mesh, W: int, C: int,
 ):
     """ONE device call per traceback segment: slice the segment's S band,
     select its seeds (checkpoint ``sk - 1`` or the closed-form row-0
@@ -1499,7 +594,6 @@ def _striped_seg_windows(
     tb = striped_band_tb(
         S_band, nv, mv, (sk * C).astype(jnp.int32), icm, icx, icy,
         mode=mode, og=og, eg=eg, block_rows=block_rows, mesh=mesh,
-        rows=rows, interpret=interpret,
     )
 
     def one(b, j0):
@@ -1521,8 +615,6 @@ def striped_align(
     block_rows: int = 8,
     ckpt_rows: Optional[int] = None,
     window: Optional[int] = None,
-    rows: str = "jax",
-    interpret: bool = False,
 ):
     """Full alignment of column-striped pairs over a device mesh.
 
@@ -1546,8 +638,7 @@ def striped_align(
 
     stats, (ckm, ckx, cky) = striped_fill_ckpt(
         S, nv, mv, mode=mode, og=og, eg=eg,
-        block_rows=block_rows, ckpt_rows=C, mesh=mesh, rows=rows,
-        interpret=interpret,
+        block_rows=block_rows, ckpt_rows=C, mesh=mesh,
     )
     stats_np = np.array(stats)  # writable copy
     if mode != LOCAL:
@@ -1567,8 +658,7 @@ def striped_align(
             cur[b] = (int(n[b]), int(m[b]), int(np.argmax(fin)))
 
     local = mode == LOCAL
-    m0_np, x0_np, y0_np = longseq.row0_carries(B, MP, mode, og, eg)
-    m0d, x0d, y0d = (jnp.asarray(a) for a in (m0_np, x0_np, y0_np))
+    m0d, x0d, y0d = row0_carries(B, MP, mode, og, eg)
     n_segs = NP // C
     for sk in range(n_segs - 1, -1, -1):
         active = [
@@ -1587,7 +677,7 @@ def striped_align(
                 S, nv, mv, ckm, ckx, cky, m0d, x0d, y0d,
                 jnp.int32(sk), bs, j0s,
                 mode=mode, og=og, eg=eg, block_rows=block_rows, mesh=mesh,
-                rows=rows, interpret=interpret, W=W, C=C,
+                W=W, C=C,
             ))
             nxt = []
             for k, (b, i, j, s) in enumerate(pend):

@@ -2,7 +2,7 @@
 
 The reference's batch drivers hold everything in one process and lose all
 work on a crash (SURVEY.md §5: no failure detection or resume).  This module
-provides the TPU-native equivalent for production sweeps: work is split into
+provides the equivalent for production sweeps: work is split into
 chunks of pairs, each completed chunk is appended to a JSONL results file
 with an index marker, and a restarted sweep skips every chunk already on
 disk.  Multi-host runs shard chunks round-robin by process index.
@@ -40,7 +40,7 @@ class SweepConfig:
     # rebuild the engine's bucket ladder from the sweep inputs' length
     # distribution (config.ladder_for_lengths): padding concentrates
     # where the sequences actually are.  Each rung pair that occurs is a
-    # kernel compile (persistently cached on real TPU hosts), bounded by
+    # fill compile (kept in the persistent compile cache), bounded by
     # auto_ladder_rungs.
     auto_ladder: bool = False
     auto_ladder_rungs: int = 12

@@ -1,7 +1,7 @@
 """Observability: per-batch throughput metrics + profiler hooks.
 
-The reference has no metrics layer (SURVEY.md §5); this provides the
-TPU-native equivalents: DP cell-updates/s (GCUPS), aligned pairs/s and
+The reference has no metrics layer (SURVEY.md §5); this provides DP
+cell-updates/s (GCUPS), aligned pairs/s and
 padding-waste ratios per length bucket, plus a ``jax.profiler`` trace
 context for timeline capture.
 """
@@ -43,8 +43,8 @@ class StatsCollector:
     # Non-overlapped engine wall: BatchAligner accumulates each _run
     # call's elapsed time here.  This is the denominator for every
     # throughput number — per-bucket inflight intervals overlap under the
-    # async pipeline and summing them inflated "device_seconds" ~6x on
-    # the r4 production sweep (VERDICT r4 weak #5).
+    # async pipeline, so summing them would count overlapped time
+    # several times over.
     run_seconds: float = 0.0
 
     def bucket(self, np_pad: int, mp_pad: int) -> BucketStat:
@@ -100,42 +100,6 @@ class StatsCollector:
 
     def report(self) -> str:
         return json.dumps(self.summary())
-
-
-def hbm_stream_probe() -> Optional[float]:
-    """Effective XLA-streaming HBM bandwidth (GB/s) of the current
-    device/window, or None off-TPU or on probe failure.
-
-    Perf artifacts stamp this next to their numbers (VERDICT r4 weak #8):
-    the backend's measurement windows drift ±30% at batch scale, and a
-    number recorded in a degraded window (single-digit GB/s streaming has
-    been observed) is not comparable to one from a healthy window
-    (~800 GB/s on v5e) without this context.
-    """
-    import time
-
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    if jax.default_backend() != "tpu":
-        return None
-    try:
-        x = jnp.ones((16 * 1024 * 1024,), jnp.float32)
-
-        @jax.jit
-        def _ew(x0):
-            def body(c, _):
-                return jnp.maximum(c * 1.0000001 + 0.5, c), c[0]
-            _, out = jax.lax.scan(body, x0, None, length=64)
-            return out
-
-        float(np.asarray(_ew(x))[-1])
-        t0 = time.time()
-        float(np.asarray(_ew(x + 1.0))[-1])
-        return round(64 / 1024 * 2 / ((time.time() - t0) / 64), 1)
-    except Exception:
-        return None
 
 
 @contextlib.contextmanager

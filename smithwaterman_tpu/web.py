@@ -5,8 +5,8 @@ The reference ships a standalone HTML page: two multi-FASTA textareas
 aligned all-vs-all, user-settable gap penalties (html:396-397), a
 BLOSUM62-vs-match/mismatch(4,-1) selector (html:62-69), and a `:` match
 line in the result (html:364-371).  Ours serves the same surface from a
-stdlib HTTP server backed by the real engine (scan on CPU, Pallas kernel
-on TPU via the Aligner routing):
+stdlib HTTP server backed by the real engine (scan on CPU, the CUDA fill
+on a GPU via the Aligner routing):
 
     python -m smithwaterman_tpu.web [--port 8000]
 

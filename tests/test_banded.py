@@ -27,7 +27,6 @@ def test_full_width_band_exact(mode):
     codes2 = RNG.integers(0, 24, size=90).astype(np.int32)
     idx1, idx2, score, edge = banded.align_banded(
         codes1, codes2, SM.table, mode=mode, og=OG, eg=EG, band=512,
-        interpret=True,
     )
     assert not edge
     ref = _ref(codes1, codes2, mode)
@@ -53,7 +52,6 @@ def test_narrow_band_similar_sequences(mode):
     codes2 = np.delete(codes2, slice(300, 303))  # small gap
     idx1, idx2, score, edge = banded.align_banded(
         codes1, codes2, SM.table, mode=mode, og=OG, eg=EG, band=128,
-        interpret=True,
     )
     ref = _ref(codes1, codes2, mode)
     tbv = np.asarray(ref.tb[0])
@@ -82,7 +80,6 @@ def test_band_constrained_flagged():
     codes2 = np.concatenate([junk, a[:400]]).astype(np.int32)
     idx1, idx2, score, edge = banded.align_banded(
         codes1, codes2, SM.table, mode=GLOCAL, og=OG, eg=EG, band=128,
-        interpret=True,
     )
     ref = _ref(codes1, codes2, GLOCAL)
     full = float(ref.final[0][int(ref.final_state[0])])
@@ -91,7 +88,6 @@ def test_band_constrained_flagged():
     # double-band verification recovers the exact result automatically
     i1, i2, vscore, used = banded.align_banded_verified(
         codes1, codes2, SM.table, mode=GLOCAL, og=OG, eg=EG, band=128,
-        interpret=True,
     )
     assert vscore == pytest.approx(full)
     want = traceback.walk(
@@ -113,7 +109,6 @@ def test_verified_accepts_without_edge_free_walk():
     b[::17] = (b[::17] + 5) % 20  # point mutations, no drift
     idx1, idx2, score, used = banded.align_banded_verified(
         a, b, SM.table, mode=LOCAL, og=OG, eg=EG, band=128, max_band=512,
-        interpret=True,
     )
     assert used == 256  # accepted at the first doubling, not the cap
     ref = _ref(a, b, LOCAL)
@@ -145,7 +140,6 @@ def test_tiny_sequences(mode):
     codes2 = RNG.integers(0, 20, size=3).astype(np.int32)
     idx1, idx2, score, edge = banded.align_banded(
         codes1, codes2, SM.table, mode=mode, og=OG, eg=EG, band=64,
-        interpret=True,
     )
     ref = _ref(codes1, codes2, mode)
     if mode == LOCAL:
@@ -158,8 +152,8 @@ def test_tiny_sequences(mode):
 
 @pytest.mark.parametrize("mode", [LOCAL, GLOCAL, GLOBAL])
 def test_batched_banded_matches_per_pair(mode):
-    """8 pairs with distinct lengths/offsets on the sublane axis must each
-    reproduce the single-pair banded result exactly (VERDICT r1 weak #3)."""
+    """8 pairs with distinct lengths/offsets in one banded fill must each
+    reproduce the single-pair banded result exactly."""
     sm = SubstitutionMatrix.blosum62()
     pairs = []
     for k in range(8):
@@ -173,18 +167,16 @@ def test_batched_banded_matches_per_pair(mode):
         pairs.append((c1, c2))
 
     got = banded.align_banded_batch(
-        pairs, sm.table, mode=mode, og=OG, eg=EG, band=128, interpret=True
+        pairs, sm.table, mode=mode, og=OG, eg=EG, band=128
     )
     for k, (c1, c2) in enumerate(pairs):
         want = banded.align_banded(
             c1, c2, sm.table, mode=mode, og=OG, eg=EG, band=128,
-            interpret=True,
         )
         # NB: the batch uses one shared W; recompute the single result at
         # the same W by batching alone
         same_w = banded.align_banded_batch(
             [(c1, c2)], sm.table, mode=mode, og=OG, eg=EG, band=128,
-            interpret=True,
         )[0]
         assert got[k][2] == same_w[2], f"pair {k} score"
         assert got[k][0] == same_w[0], f"pair {k} idx1"
@@ -201,7 +193,6 @@ def test_full_width_band_degenerate_penalties():
     codes2 = RNG.integers(0, 24, size=90).astype(np.int32)
     idx1, idx2, score, edge = banded.align_banded(
         codes1, codes2, SM.table, mode=GLOBAL, og=0.0, eg=0.0, band=256,
-        interpret=True,
     )
     S = SM.dense_scores(codes1, codes2)[None].astype(np.float32)
     n = np.array([len(codes1)], np.int32)
@@ -216,12 +207,11 @@ def test_full_width_band_degenerate_penalties():
 
 
 def test_pallas_banded_scores_match_gather_oracle():
-    """The gather-free Pallas scores kernel must be bit-identical to the
-    XLA-gather reference (_banded_scores) across offsets/masks."""
+    """The on-device banded scores (_banded_scores) must equal a plain
+    per-cell table lookup across offsets and the seq2 mask."""
     import jax.numpy as jnp
 
-    from smithwaterman_tpu.ops.banded import (
-        TBP, _banded_scores, _banded_scores_pallas, band_offsets)
+    from smithwaterman_tpu.ops.banded import TBP, _banded_scores, band_offsets
 
     rng = np.random.default_rng(4)
     table = np.asarray(
@@ -231,9 +221,8 @@ def test_pallas_banded_scores_match_gather_oracle():
     ns = [64, 50, 33, 8, 64, 1, 17, 40]
     ms = [160, 40, 150, 128, 9, 100, 13, 127]
     Mmax = max(ms)
-    Mpad = -(-Mmax // 128) * 128 + 128  # aligned over-wide window room
     c1b = rng.integers(0, K, size=(TBP, NP)).astype(np.int32)
-    c2b = np.zeros((TBP, Mpad), np.int32)
+    c2b = np.zeros((TBP, Mmax), np.int32)
     offr = np.zeros((TBP, NP), np.int32)
     for t in range(TBP):
         c2b[t, :ms[t]] = rng.integers(0, K, size=ms[t])
@@ -242,13 +231,15 @@ def test_pallas_banded_scores_match_gather_oracle():
         full[: ns[t] + 1] = off
         full[ns[t] + 1:] = off[-1]
         offr[t] = full[1:]
-    nm = np.stack([ns, ms], axis=1).astype(np.int32)
-    fast = np.asarray(_banded_scores_pallas(
+    got = np.asarray(_banded_scores(
         jnp.asarray(c1b), jnp.asarray(c2b), jnp.asarray(table),
-        jnp.asarray(nm), W=W, interpret=True,
-    ))
-    ref = np.asarray(_banded_scores(
-        jnp.asarray(c1b), jnp.asarray(c2b[:, :Mmax]), jnp.asarray(table),
         jnp.asarray(offr), jnp.asarray(np.asarray(ms, np.int32)), W=W,
-    )).transpose(1, 0, 2)
-    np.testing.assert_array_equal(fast, ref)
+    ))
+    want = np.zeros((TBP, NP, W), np.float32)
+    for t in range(TBP):
+        for r in range(NP):
+            for w in range(W):
+                col = offr[t, r] + w
+                if col < ms[t]:
+                    want[t, r, w] = table[c1b[t, r], c2b[t, col]]
+    np.testing.assert_array_equal(got, want)

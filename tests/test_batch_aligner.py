@@ -1,7 +1,7 @@
 """BatchAligner end-to-end: bucketed batches must be bit-identical to the
 single-pair Aligner (and therefore to the EMBOSS goldens), on both the scan
-backend and the Pallas kernel (interpret mode on CPU), and under an 8-device
-sharded mesh."""
+backend and the tiled pipeline with the plain-JAX fill, and under an
+8-device sharded mesh."""
 
 import json
 import os
@@ -52,7 +52,7 @@ def _short_pairs():
 
 
 @pytest.mark.parametrize("mode", [LOCAL, GLOCAL, GLOBAL])
-@pytest.mark.parametrize("backend", ["scan", "pallas_interpret"])
+@pytest.mark.parametrize("backend", ["scan", "xla"])
 def test_batch_matches_single(mode, backend):
     pairs = _short_pairs()
     single = Aligner(mode=mode)
@@ -90,22 +90,23 @@ def test_score_pairs():
 
 
 def test_scaled_matrix_batch():
-    """Integer x10 matrix stays on the int8 fast path and stays exact."""
+    """Integer x10 matrix stays in the exact quarter-unit domain (the CUDA
+    fill's int32 path) and stays exact."""
     case = CASES["scaled_local"][0]
     sm = SubstitutionMatrix.blosum62()
     sm.table = sm.table * 10.0
     ba = BatchAligner(
         scoring_matrix=sm, gap_open=100.0, gap_extend=5.0, mode=LOCAL,
-        backend="pallas_interpret",
+        backend="xla",
     )
-    assert ba._table_is_int
+    assert ba._quarter
     r = ba.align_pairs([(case["seq1"], case["seq2"])], retain_all=False)[0]
     assert r.aligned1 == case["aligned1"]
     assert r.aligned2 == case["aligned2"]
 
 
 def test_sharded_mesh_8_devices():
-    """shard_map over an 8-device CPU mesh, Pallas kernel in interpret mode."""
+    """shard_map over an 8-device CPU mesh, plain-JAX fill per shard."""
     import jax
 
     assert len(jax.devices()) == 8, "conftest must force 8 virtual devices"
@@ -113,7 +114,7 @@ def test_sharded_mesh_8_devices():
     dp = DataParallel(mesh)
     pairs = _short_pairs() * 12  # 84 pairs -> 2 tiles/device after padding
     ba = BatchAligner(
-        mode=LOCAL, backend="pallas_interpret", device_axis=dp
+        mode=LOCAL, backend="xla", device_axis=dp
     )
     single = Aligner(mode=LOCAL)
     got = ba.align_pairs(pairs)
@@ -133,7 +134,7 @@ def test_sharded_mesh_glocal_and_scores():
     assert len(jax.devices()) == 8
     dp = DataParallel(make_mesh(8))
     pairs = _short_pairs() * 5
-    ba = BatchAligner(mode=GLOCAL, backend="pallas_interpret", device_axis=dp)
+    ba = BatchAligner(mode=GLOCAL, backend="xla", device_axis=dp)
     single = Aligner(mode=GLOCAL)
     got = ba.align_pairs(pairs)
     for p, r in zip(pairs, got):
@@ -166,11 +167,11 @@ def test_pow2_group_chunking_matches_scan():
     want = BatchAligner(backend="scan").align_pairs(pairs)
     for device_walk in (True, False):  # device bundles / host-walk parts
         ba = BatchAligner(
-            backend="pallas_interpret", tile_pairs=8,
+            backend="xla", tile_pairs=8,
             device_walk=device_walk,
         )
         seen_multi = {}
-        orig = ba._dispatch_pallas
+        orig = ba._dispatch_tiled
 
         def spy(codes1, *a, _orig=orig, _seen=seen_multi, **kw):
             pend = _orig(codes1, *a, **kw)
@@ -178,7 +179,7 @@ def test_pow2_group_chunking_matches_scan():
             _seen[pend["kind"]] += 1
             return pend
 
-        ba._dispatch_pallas = spy
+        ba._dispatch_tiled = spy
         got = ba.align_pairs(pairs)
         assert seen_multi.get("multi"), f"multi path not exercised: {seen_multi}"
         for g, w in zip(got, want):
@@ -186,7 +187,7 @@ def test_pow2_group_chunking_matches_scan():
                 w.aligned1, w.aligned2, w.score)
     # score-only through the same chunking
     gs = BatchAligner(
-        backend="pallas_interpret", tile_pairs=8
+        backend="xla", tile_pairs=8
     ).score_pairs(pairs)
     np.testing.assert_array_equal(
         gs, BatchAligner(backend="scan").score_pairs(pairs))
@@ -198,11 +199,11 @@ def test_sharded_host_walk_fallback_matches():
     dp = DataParallel(make_mesh(8))
     pairs = _short_pairs() * 3
     dev = BatchAligner(
-        mode=LOCAL, backend="pallas_interpret", device_axis=dp,
+        mode=LOCAL, backend="xla", device_axis=dp,
         device_walk=True,
     ).align_pairs(pairs)
     host = BatchAligner(
-        mode=LOCAL, backend="pallas_interpret", device_axis=dp,
+        mode=LOCAL, backend="xla", device_axis=dp,
         device_walk=False,
     ).align_pairs(pairs)
     for d, h in zip(dev, host):
@@ -222,7 +223,7 @@ def test_sharded_pow2_chunking_matches_single():
     ]
     dp = DataParallel(make_mesh(8))
     ba = BatchAligner(
-        backend="pallas_interpret", device_axis=dp, tile_pairs=8
+        backend="xla", device_axis=dp, tile_pairs=8
     )
     seen = {}
     orig = ba._dispatch_bucket
@@ -257,7 +258,7 @@ def test_score_only_fused_all_modes():
     ]
     for mode in (LOCAL, GLOBAL, GLOCAL):
         fused = BatchAligner(
-            mode=mode, backend="pallas_interpret", tile_pairs=8
+            mode=mode, backend="xla", tile_pairs=8
         ).score_pairs(pairs)
         oracle = BatchAligner(mode=mode, backend="scan").score_pairs(pairs)
         np.testing.assert_array_equal(fused, oracle)

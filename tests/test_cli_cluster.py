@@ -208,7 +208,7 @@ def test_cluster_empty_input(tmp_path):
 
 def test_stats_flag(tmp_path, capsys):
     """-stats emits the per-bucket observability report (GCUPS, padding
-    waste) as one JSON line on stderr (SURVEY.md §5, VERDICT r3 weak #6)."""
+    waste) as one JSON line on stderr (SURVEY.md §5)."""
     import json
 
     f1 = tmp_path / "a.fas"
@@ -248,7 +248,7 @@ def test_band_flag(tmp_path, capsys):
 
 
 def test_band_with_stats(tmp_path, capsys):
-    """-stats with -band records the banded pairs (ADVICE r4: the banded
+    """-stats with -band records the banded pairs (the banded
     path bypasses BatchAligner, so stats must be fed explicitly — an
     all-zero report here is a regression)."""
     import json

@@ -31,10 +31,10 @@ def test_device_walk_matches_host_walk(mode):
     pairs = _rand_pairs(rng, 11)
     pairs.append(("AAAA", "WWWW"))  # local: nothing aligns (score 0)
     dev = swt.BatchAligner(
-        mode=mode, backend="pallas_interpret", device_walk=True
+        mode=mode, backend="xla", device_walk=True
     ).align_pairs(pairs)
     host = swt.BatchAligner(
-        mode=mode, backend="pallas_interpret", device_walk=False
+        mode=mode, backend="xla", device_walk=False
     ).align_pairs(pairs)
     for d, h in zip(dev, host):
         assert (d.aligned1, d.aligned2, d.score) == (
@@ -49,11 +49,11 @@ def test_device_walk_zero_penalties_boundary_rule():
     for mode in (swt.LOCAL, swt.GLOBAL, swt.GLOCAL):
         dev = swt.BatchAligner(
             mode=mode, gap_open=0.0, gap_extend=0.0,
-            backend="pallas_interpret", device_walk=True,
+            backend="xla", device_walk=True,
         ).align_pairs(pairs)
         host = swt.BatchAligner(
             mode=mode, gap_open=0.0, gap_extend=0.0,
-            backend="pallas_interpret", device_walk=False,
+            backend="xla", device_walk=False,
         ).align_pairs(pairs)
         for d, h in zip(dev, host):
             assert (d.aligned1, d.aligned2, d.score) == (
@@ -63,7 +63,7 @@ def test_device_walk_zero_penalties_boundary_rule():
 def test_device_walk_score_only_unaffected():
     rng = np.random.default_rng(5)
     pairs = _rand_pairs(rng, 5)
-    ba = swt.BatchAligner(backend="pallas_interpret", device_walk=True)
+    ba = swt.BatchAligner(backend="xla", device_walk=True)
     s = ba.score_pairs(pairs)
     ref = swt.BatchAligner(backend="scan").score_pairs(pairs)
     np.testing.assert_array_equal(s, ref)
@@ -138,10 +138,10 @@ def test_hbm_budget_routes_large_buckets_to_device_walk():
     host-transfer cost longseq dodged is gone); outputs identical."""
     rng = np.random.default_rng(11)
     pairs = _rand_pairs(rng, 4, lo=120, hi=200)
-    plain = swt.BatchAligner(backend="pallas_interpret")
+    plain = swt.BatchAligner(backend="xla")
     assert plain.device_walk
     plain.tb_hbm_bytes = 1 << 40  # everything fits: device-walk route
-    forced = swt.BatchAligner(backend="pallas_interpret")
+    forced = swt.BatchAligner(backend="xla")
     forced.tb_hbm_bytes = 1  # nothing fits: longseq route
     a = plain.align_pairs(pairs)
     b = forced.align_pairs(pairs)
@@ -154,9 +154,9 @@ def test_explicit_longseq_cells_still_forces_longseq():
     rng = np.random.default_rng(13)
     pairs = _rand_pairs(rng, 3, lo=100, hi=160)
     forced = swt.BatchAligner(
-        backend="pallas_interpret", longseq_cells=64 * 64
+        backend="xla", longseq_cells=64 * 64
     )
-    plain = swt.BatchAligner(backend="pallas_interpret")
+    plain = swt.BatchAligner(backend="xla")
     a = forced.align_pairs(pairs)
     b = plain.align_pairs(pairs)
     for x, y in zip(a, b):
@@ -174,12 +174,12 @@ def test_sharded_device_walk_zero_penalties():
     for mode in (swt.LOCAL, swt.GLOBAL, swt.GLOCAL):
         sharded = swt.BatchAligner(
             mode=mode, gap_open=0.0, gap_extend=0.0,
-            backend="pallas_interpret",
+            backend="xla",
             device_axis=DataParallel(make_mesh(8)),
         ).align_pairs(pairs)
         host = swt.BatchAligner(
             mode=mode, gap_open=0.0, gap_extend=0.0,
-            backend="pallas_interpret", device_walk=False,
+            backend="xla", device_walk=False,
         ).align_pairs(pairs)
         for d, h in zip(sharded, host):
             assert (d.aligned1, d.aligned2, d.score) == (

@@ -128,14 +128,14 @@ def test_fuzz_scores_vs_reference_perl():
 
 
 def test_fuzz_batch_device_walk_vs_reference(tmp_path):
-    """The production batch path (pallas kernel + on-device walk,
-    interpret mode here) differentially fuzzed against the reference's
+    """The production batch path (tiled fill + on-device walk, the
+    plain-JAX fill here) differentially fuzzed against the reference's
     own Python engine — random pairs, one bucketed batch call."""
     from smithwaterman_tpu import BatchAligner
 
     rng = np.random.default_rng(31337)
     pairs = [_rand_pair(rng) for _ in range(16)]
-    ba = BatchAligner(mode=LOCAL, backend="pallas_interpret")
+    ba = BatchAligner(mode=LOCAL, backend="xla")
     assert ba.device_walk
     got = ba.align_pairs(pairs)
     for k, ((s1, s2), r) in enumerate(zip(pairs, got)):

@@ -7,9 +7,9 @@ import pytest
 from smithwaterman_tpu.config import CELL_MATCH, GLOBAL, GLOCAL, LOCAL
 from smithwaterman_tpu.matrices import SubstitutionMatrix
 from smithwaterman_tpu.ops import batch, longseq, traceback
-from smithwaterman_tpu.ops.pallas_dp import TB
 
 RNG = np.random.default_rng(99)
+TB = 8  # pairs per test batch
 NP_PAD = 128
 MP_PAD = 128
 CKPT = 32  # 4 segments
@@ -28,10 +28,10 @@ def _batch(k=24):
 def test_longseq_matches_plain_walk(mode):
     sm = SubstitutionMatrix.blosum62()
     codes1, codes2, n, m = _batch()
-    S_tiled = batch.scores_tiled(sm.table, codes1, codes2, as_int8=True, tile=TB)
 
     idx_lists, stats = longseq.align_long(
-        S_tiled, n, m, mode=mode, og=OG, eg=EG, ckpt_rows=CKPT, interpret=True
+        sm.table, codes1, codes2, n, m, mode=mode, og=OG, eg=EG,
+        ckpt_rows=CKPT,
     )
 
     S_dense = np.stack(
@@ -69,7 +69,7 @@ def test_batch_aligner_longseq_routing():
     base = mk(150)
     s1 = base + mk(30)
     s2 = base[10:120] + mk(40)  # related pair, lengths 180/150
-    ba = BatchAligner(mode=GLOCAL, backend="pallas_interpret", longseq_cells=128 * 128)
+    ba = BatchAligner(mode=GLOCAL, backend="xla", longseq_cells=128 * 128)
     r = ba.align_pairs([(s1, s2)])[0]
     w = Aligner(mode=GLOCAL).align(s1, s2, True)
     assert (r.score, r.aligned1, r.aligned2) == (w.score, w.aligned1, w.aligned2)
@@ -85,11 +85,9 @@ def test_longseq_walk_left_rerounds():
     m = np.array([512, 300, 512, 200, 512, 150, 512, 512], np.int32)
     codes1 = RNG.integers(0, 20, size=(TB, npp)).astype(np.int32)
     codes2 = RNG.integers(0, 20, size=(TB, mpp)).astype(np.int32)
-    S_tiled = batch.scores_tiled(sm.table, codes1, codes2, as_int8=True,
-                                 tile=TB)
     idx_lists, stats = longseq.align_long(
-        S_tiled, n, m, mode=GLOBAL, og=OG, eg=EG, ckpt_rows=8, window=128,
-        interpret=True,
+        sm.table, codes1, codes2, n, m, mode=GLOBAL, og=OG, eg=EG,
+        ckpt_rows=8, window=128,
     )
     S_dense = np.stack(
         [sm.dense_scores(codes1[b], codes2[b]) for b in range(TB)]
@@ -110,11 +108,9 @@ def test_longseq_degenerate_penalties():
     diverges from the plain walk immediately."""
     sm = SubstitutionMatrix.blosum62()
     codes1, codes2, n, m = _batch()
-    S_tiled = batch.scores_tiled(sm.table, codes1, codes2, as_int8=True,
-                                 tile=TB)
     idx_lists, stats = longseq.align_long(
-        S_tiled, n, m, mode=GLOBAL, og=0.0, eg=0.0, ckpt_rows=CKPT,
-        interpret=True,
+        sm.table, codes1, codes2, n, m, mode=GLOBAL, og=0.0, eg=0.0,
+        ckpt_rows=CKPT,
     )
     S_dense = np.stack(
         [sm.dense_scores(codes1[b], codes2[b]) for b in range(TB)]
@@ -132,19 +128,19 @@ def test_longseq_degenerate_penalties():
 @pytest.mark.parametrize("mode", [LOCAL, GLOCAL, GLOBAL])
 def test_longseq_packed_matches_host_path(mode):
     """align_long_packed's device segment walks must replay the exact same
-    paths as align_long's host band walks (same fill_band tie-breaks)."""
+    paths as align_long's host band walks (same band re-fill tie-breaks)."""
     from smithwaterman_tpu.ops import device_walk
 
     sm = SubstitutionMatrix.blosum62()
     codes1, codes2, n, m = _batch()
-    S_tiled = batch.scores_tiled(sm.table, codes1, codes2, as_int8=True, tile=TB)
 
     idx_lists, stats = longseq.align_long(
-        S_tiled, n, m, mode=mode, og=OG, eg=EG, ckpt_rows=CKPT, interpret=True
+        sm.table, codes1, codes2, n, m, mode=mode, og=OG, eg=EG,
+        ckpt_rows=CKPT,
     )
     stats_d, cnt_d, mv_d = longseq.align_long_packed(
-        S_tiled, n, m, mode=mode, og=OG, eg=EG, ckpt_rows=CKPT,
-        interpret=True,
+        sm.table, codes1, codes2, n, m, mode=mode, og=OG, eg=EG,
+        ckpt_rows=CKPT,
     )
     stats_p = np.asarray(stats_d)
     cnt = np.asarray(cnt_d)

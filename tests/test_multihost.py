@@ -1,6 +1,6 @@
 """Multi-host path: a REAL 2-process jax.distributed rendezvous on
 localhost (2 x 4 virtual CPU devices), exercising multihost.initialize(),
-a DCN collective, and the host-sharded sweep (VERDICT r1 weak #4).
+a cross-process collective, and the host-sharded sweep.
 
 Spawns two fresh interpreters (jax.distributed cannot re-init in-process)
 and merges their sweep shards.

@@ -6,9 +6,9 @@ import pytest
 from smithwaterman_tpu.config import CELL_MATCH, GLOBAL, GLOCAL, LOCAL
 from smithwaterman_tpu.matrices import SubstitutionMatrix
 from smithwaterman_tpu.ops import batch, traceback
-from smithwaterman_tpu.ops.pallas_dp import TB
 
 RNG = np.random.default_rng(7)
+TB = 8  # pairs per test batch
 
 
 def _with_native(enabled, fn):
@@ -94,7 +94,7 @@ def test_native_band_walkers_match_python(mode):
     def run_banded():
         return banded.align_banded(
             codes1, codes2, sm.table, mode=mode, og=-10.0, eg=-0.5,
-            band=128, interpret=True,
+            band=128,
         )
     got_native = _with_native(True, run_banded)
     got_python = _with_native(False, run_banded)
@@ -104,17 +104,13 @@ def test_native_band_walkers_match_python(mode):
     # and window re-gathers)
     c1b = codes1[None, :].repeat(8, axis=0)
     c2b = codes2[None, :].repeat(8, axis=0)
-    S = np.asarray(batch.scores_tiled(
-        sm.table, np.ascontiguousarray(c1b), np.ascontiguousarray(c2b),
-        as_int8=True, tile=TB,
-    ))
     n = np.full(8, len(codes1), np.int32)
     m = np.full(8, len(codes2), np.int32)
 
     def run_long():
         return longseq.align_long(
-            S, n, m, mode=mode, og=-10.0, eg=-0.5, ckpt_rows=8, window=128,
-            interpret=True,
+            sm.table, c1b, c2b, n, m, mode=mode, og=-10.0, eg=-0.5,
+            ckpt_rows=8, window=128,
         )
     idx_nat, st_nat = _with_native(True, run_long)
     idx_py, st_py = _with_native(False, run_long)

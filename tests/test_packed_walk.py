@@ -32,7 +32,7 @@ def _fields(r):
 
 def _aligner(mode, packed, monkeypatch, **kw):
     monkeypatch.setenv("SWTPU_PACKED_WALK", "1" if packed else "0")
-    return swt.BatchAligner(mode=mode, backend="pallas_interpret",
+    return swt.BatchAligner(mode=mode, backend="xla",
                             device_walk=True, **kw)
 
 
@@ -73,7 +73,7 @@ def test_packed_zero_penalties_boundary_rule(monkeypatch):
                           gap_open=0.0, gap_extend=0.0).align_pairs(pairs)
         host = swt.BatchAligner(
             mode=mode, gap_open=0.0, gap_extend=0.0,
-            backend="pallas_interpret", device_walk=False,
+            backend="xla", device_walk=False,
         ).align_pairs(pairs)
         for p, h in zip(packed, host):
             assert _fields(p) == _fields(h)
@@ -84,10 +84,10 @@ def test_packed_multi_chunk_bucket(monkeypatch):
     rng = np.random.default_rng(17)
     monkeypatch.setenv("SWTPU_PACKED_WALK", "1")
     pairs = _rand_pairs(rng, 40, lo=100, hi=128)
-    ba = swt.BatchAligner(mode=swt.LOCAL, backend="pallas_interpret",
+    ba = swt.BatchAligner(mode=swt.LOCAL, backend="xla",
                           device_walk=True, tile_pairs=8)
     packed = ba.align_pairs(pairs)
-    host = swt.BatchAligner(mode=swt.LOCAL, backend="pallas_interpret",
+    host = swt.BatchAligner(mode=swt.LOCAL, backend="xla",
                             device_walk=False).align_pairs(pairs)
     for p, h in zip(packed, host):
         assert _fields(p) == _fields(h)
@@ -104,11 +104,11 @@ def test_packed_sharded_matches_host(mode, monkeypatch):
     pairs.append(("AAAA", "WWWW"))
     monkeypatch.setenv("SWTPU_PACKED_WALK", "1")
     sharded = swt.BatchAligner(
-        mode=mode, backend="pallas_interpret",
+        mode=mode, backend="xla",
         device_axis=DataParallel(make_mesh(8)),
     ).align_pairs(pairs)
     host = swt.BatchAligner(
-        mode=mode, backend="pallas_interpret", device_walk=False,
+        mode=mode, backend="xla", device_walk=False,
     ).align_pairs(pairs)
     for d, h in zip(sharded, host):
         assert _fields(d) == _fields(h)
@@ -134,9 +134,9 @@ def test_pooled_walk_matches_host(mode, monkeypatch):
     pairs.append(("AAAA", "WWWW"))
     monkeypatch.setenv("SWTPU_PACKED_WALK", "1")
     monkeypatch.setenv("SWTPU_POOLED_WALK", "1")
-    pooled = swt.BatchAligner(mode=mode, backend="pallas_interpret",
+    pooled = swt.BatchAligner(mode=mode, backend="xla",
                               tile_pairs=8).align_pairs(pairs)
-    host = swt.BatchAligner(mode=mode, backend="pallas_interpret",
+    host = swt.BatchAligner(mode=mode, backend="xla",
                             device_walk=False).align_pairs(pairs)
     for p, h in zip(pooled, host):
         assert _fields(p) == _fields(h)
@@ -150,10 +150,10 @@ def test_pooled_walk_budget_splits_pools(monkeypatch):
     monkeypatch.setenv("SWTPU_PACKED_WALK", "1")
     monkeypatch.setenv("SWTPU_POOLED_WALK", "1")
     monkeypatch.setenv("SWTPU_TB_HBM_BYTES", str(600 << 10))
-    ba = swt.BatchAligner(mode=swt.LOCAL, backend="pallas_interpret",
+    ba = swt.BatchAligner(mode=swt.LOCAL, backend="xla",
                           tile_pairs=8)
     pooled = ba.align_pairs(pairs)
-    host = swt.BatchAligner(mode=swt.LOCAL, backend="pallas_interpret",
+    host = swt.BatchAligner(mode=swt.LOCAL, backend="xla",
                             device_walk=False).align_pairs(pairs)
     for p, h in zip(pooled, host):
         assert _fields(p) == _fields(h)
@@ -165,10 +165,10 @@ def test_pooled_off_restores_per_chunk_walks(monkeypatch):
     rng = np.random.default_rng(13)
     pairs = _rand_pairs(rng, 10)
     per_chunk = swt.BatchAligner(mode=swt.GLOCAL,
-                                 backend="pallas_interpret").align_pairs(pairs)
+                                 backend="xla").align_pairs(pairs)
     monkeypatch.setenv("SWTPU_POOLED_WALK", "1")
     pooled = swt.BatchAligner(mode=swt.GLOCAL,
-                              backend="pallas_interpret").align_pairs(pairs)
+                              backend="xla").align_pairs(pairs)
     for a, b in zip(per_chunk, pooled):
         assert _fields(a) == _fields(b)
 
@@ -178,8 +178,7 @@ def test_pooled_walk_no_retrace_on_shuffled_workload(monkeypatch):
     Two load-bearing determinism rules keep that cache hot (batch_aligner:
     buckets dispatch in shape order; chunks sort by shape inside a flush):
     without them, a shuffled call of the SAME workload re-traces the
-    multi-second pooled program every time (2.8-10.5 s of pure Python,
-    MEASUREMENTS_r04.md §2).  This pins both rules: a shuffled second
+    pooled program every time.  This pins both rules: a shuffled second
     dispatch must add ZERO new cache entries.  The pooled FILL program
     (ops/batch.fill_many) keys on the same composition — pin it too."""
     from smithwaterman_tpu.ops import batch as batch_ops
@@ -191,13 +190,10 @@ def test_pooled_walk_no_retrace_on_shuffled_workload(monkeypatch):
     rng = np.random.default_rng(7)
     # spread over several buckets so the pool really has a composition
     pairs = _rand_pairs(rng, 24, lo=3, hi=250)
-    ba = swt.BatchAligner(mode=swt.LOCAL, backend="pallas_interpret",
+    ba = swt.BatchAligner(mode=swt.LOCAL, backend="xla",
                           device_walk=True)
     def _walk_cache():
-        # move streams (walk_bundle_pooled) are the default route;
-        # SWTPU_TOKEN_WALK=1 workloads use walk_bundle_pooled_tokens
-        return (device_walk.walk_bundle_pooled._cache_size()
-                + device_walk.walk_bundle_pooled_tokens._cache_size())
+        return device_walk.walk_bundle_pooled._cache_size()
 
     r1 = ba.align_pairs(pairs)
     size1 = _walk_cache()
@@ -222,7 +218,7 @@ def test_pooled_walk_no_retrace_on_shuffled_workload(monkeypatch):
 
 
 def test_pooled_fill_budget_rounds(monkeypatch):
-    """When staged pointer bytes pass the GLOBAL HBM budget, fills and
+    """When staged pointer bytes pass the GLOBAL pointer budget, fills and
     walks flush in rounds (fill #1, walks #1, fill #2, ...) and results
     are unchanged.  Budget is sized over the largest single chunk (so no
     longseq rerouting) but under the workload total (so >= 2 rounds)."""
@@ -234,7 +230,7 @@ def test_pooled_fill_budget_rounds(monkeypatch):
     # is 16*256*256 = 1.05 MB of pointers (under budget, so no longseq
     # rerouting: group_tb = 8*256*256 = 524 kB), total ~2 MB (over)
     monkeypatch.setenv("SWTPU_TB_HBM_BYTES", str(1_200_000))
-    ba = swt.BatchAligner(mode=swt.GLOCAL, backend="pallas_interpret",
+    ba = swt.BatchAligner(mode=swt.GLOCAL, backend="xla",
                           device_walk=True, tile_pairs=8)
     flushes = []
     orig = ba._flush_fills
@@ -243,7 +239,7 @@ def test_pooled_fill_budget_rounds(monkeypatch):
     assert len(flushes) >= 2, "budget should force multiple fill rounds"
     monkeypatch.setenv("SWTPU_TB_HBM_BYTES", str(4 << 30))
     monkeypatch.setenv("SWTPU_POOLED_FILL", "0")
-    plain = swt.BatchAligner(mode=swt.GLOCAL, backend="pallas_interpret",
+    plain = swt.BatchAligner(mode=swt.GLOCAL, backend="xla",
                              device_walk=True, tile_pairs=8).align_pairs(pairs)
     for a, b in zip(pooled, plain):
         assert _fields(a) == _fields(b)

@@ -1,8 +1,10 @@
-"""Pallas fill kernel vs the scan reference path: bit-exact equivalence.
+"""The tiled fill (ops/fill.py) vs the scan reference path: bit-exact
+equivalence.
 
 The scan path (ops/scan_dp.py) is string-exact against all 300 EMBOSS golden
-fixtures; the Pallas kernel (ops/pallas_dp.py) must reproduce its traceback
-pointers and stats cell-for-cell.  Runs in interpret mode on CPU.
+fixtures; the plain-JAX tiled fill — the reference the CUDA kernel is
+compared with on the GPU — must reproduce its traceback pointers and stats
+cell-for-cell.
 """
 
 import numpy as np
@@ -10,13 +12,24 @@ import pytest
 
 from smithwaterman_tpu.config import GLOBAL, GLOCAL, LOCAL
 from smithwaterman_tpu.matrices import SubstitutionMatrix
-from smithwaterman_tpu.ops import batch, scan_dp
-from smithwaterman_tpu.ops.pallas_dp import TB
+from smithwaterman_tpu.ops import batch, fill
+
+TB = 8  # pairs per test batch
 
 RNG = np.random.default_rng(12345)
 NP_PAD = 64
 MP_PAD = 128
 OG, EG = -10.0, -0.5
+
+
+def _fill(table, codes1, codes2, n, m, *, mode, og, eg, score_only=False):
+    """ops/fill.fill_xla with host results: (tb (1, NP, B, MP) | None,
+    stats (B, 8))."""
+    tb, stats = fill.fill_xla(
+        np.asarray(table, np.float32), codes1, codes2, n, m, mode=mode,
+        og=og, eg=eg, score_only=score_only,
+    )
+    return (None if tb is None else np.asarray(tb)), np.asarray(stats)
 
 
 def _random_batch(k=24):
@@ -28,312 +41,138 @@ def _random_batch(k=24):
     return codes1, codes2, n, m
 
 
+def _dense(table, codes1, codes2):
+    return np.stack(
+        [np.asarray(table)[np.ix_(codes1[b], codes2[b])]
+         for b in range(codes1.shape[0])]
+    ).astype(np.float32)
+
+
+def _check(table, codes1, codes2, n, m, *, mode, og=OG, eg=EG,
+           score_only=False, msg=""):
+    """Fill vs scan oracle: pointers inside each pair's (n, m) region,
+    LOCAL best + argmax, non-LOCAL finals."""
+    tb, stats = _fill(table, codes1, codes2, n, m, mode=mode, og=og, eg=eg,
+                      score_only=score_only)
+    ref = batch.fill_scan(_dense(table, codes1, codes2), n, m, mode=mode,
+                          og=og, eg=eg, score_only=score_only)
+    assert stats.shape == (codes1.shape[0], fill.STATS_W)
+    for b in range(codes1.shape[0]):
+        nb, mb = int(n[b]), int(m[b])
+        if mode == LOCAL:
+            assert stats[b, 0] == float(ref.best[b]), f"{msg} pair {b}"
+            assert int(stats[b, 1]) == int(ref.best_i[b]), f"{msg} pair {b} i"
+            assert int(stats[b, 2]) == int(ref.best_j[b]), f"{msg} pair {b} j"
+        else:
+            np.testing.assert_array_equal(
+                stats[b, 3:6], np.asarray(ref.final[b]), err_msg=f"{msg} {b}")
+        if score_only:
+            assert tb is None
+            continue
+        ours = batch.tb_pair_view(tb, b)[:nb, :mb]
+        theirs = np.asarray(ref.tb[b])[1:nb + 1, 1:mb + 1]
+        np.testing.assert_array_equal(ours, theirs, err_msg=f"{msg} pair {b}")
+    return tb, stats, ref
+
+
 @pytest.mark.parametrize("mode", [LOCAL, GLOCAL, GLOBAL])
 def test_kernel_matches_scan(mode):
     sm = SubstitutionMatrix.blosum62()
     codes1, codes2, n, m = _random_batch(sm.n_symbols)
-
-    S_dense = np.stack(
-        [sm.dense_scores(codes1[b], codes2[b]) for b in range(TB)]
-    ).astype(np.float32)
-
-    S_tiled = np.asarray(
-        batch.scores_tiled(sm.table, codes1, codes2, as_int8=True, tile=TB)
-    )
-    # integer one-hot matmul must be exact
-    for b in range(TB):
-        np.testing.assert_array_equal(
-            S_tiled[0, :, b, :].astype(np.float32), S_dense[b]
-        )
-
-    tb_tiled, stats = batch.fill_pallas(
-        S_tiled, n, m, mode=mode, og=OG, eg=EG, interpret=True
-    )
-
-    ref = batch.fill_scan(S_dense, n, m, mode=mode, og=OG, eg=EG)
-
-    for b in range(TB):
-        nb, mb = int(n[b]), int(m[b])
-        ours = batch.tb_pair_view(tb_tiled, b)[:nb, :mb]
-        theirs = np.asarray(ref.tb[b])[1 : nb + 1, 1 : mb + 1]
-        np.testing.assert_array_equal(ours, theirs, err_msg=f"pair {b} tb")
-        if mode == LOCAL:
-            assert stats[b, 0] == pytest.approx(float(ref.best[b])), f"pair {b}"
-            if float(ref.best[b]) > 0:
-                assert int(stats[b, 1]) == int(ref.best_i[b]), f"pair {b} i"
-                assert int(stats[b, 2]) == int(ref.best_j[b]), f"pair {b} j"
-        else:
-            np.testing.assert_allclose(
-                stats[b, 3:6], np.asarray(ref.final[b]), err_msg=f"pair {b}"
-            )
+    tb, _, _ = _check(sm.table, codes1, codes2, n, m, mode=mode)
+    # the plain fill's layout: one group holding the whole batch
+    assert tb.shape == (1, NP_PAD, TB, MP_PAD) and tb.dtype == np.uint8
 
 
 @pytest.mark.parametrize("mode", [LOCAL, GLOCAL, GLOBAL])
 def test_kernel_score_only(mode):
     sm = SubstitutionMatrix.blosum62()
     codes1, codes2, n, m = _random_batch(sm.n_symbols)
-    S_tiled = np.asarray(
-        batch.scores_tiled(sm.table, codes1, codes2, as_int8=True, tile=TB)
-    )
-    tb_tiled, stats = batch.fill_pallas(
-        S_tiled, n, m, mode=mode, og=OG, eg=EG, score_only=True, interpret=True
-    )
-    assert tb_tiled is None
-    S_dense = np.stack(
-        [sm.dense_scores(codes1[b], codes2[b]) for b in range(TB)]
-    ).astype(np.float32)
-    ref = batch.fill_scan(S_dense, n, m, mode=mode, og=OG, eg=EG, score_only=True)
-    for b in range(TB):
-        if mode == LOCAL:
-            assert stats[b, 0] == pytest.approx(float(ref.best[b]))
-        else:
-            np.testing.assert_allclose(stats[b, 3:6], np.asarray(ref.final[b]))
+    _check(sm.table, codes1, codes2, n, m, mode=mode, score_only=True)
+
+
+def _zero_best_batch(sm):
+    """One all-mismatch pair ('*' vs 'A') whose local best is exactly 0,
+    so every valid cell ties the best."""
+    codes1, codes2, n, m = _random_batch(sm.n_symbols)
+    codes1 = codes1.copy()
+    codes2 = codes2.copy()
+    codes1[5, :] = sm.seq_to_index("*" * NP_PAD)
+    codes2[5, :] = sm.seq_to_index("A" * MP_PAD)
+    return codes1, codes2, n, m
 
 
 def test_kernel_score_only_masked_s():
-    """LOCAL score-only with poisoned S padding + unmasked running best
-    must reproduce the scan's best scores exactly (incl. all-mismatch
-    pairs where the best is 0)."""
-    import jax.numpy as jnp
-
+    """LOCAL score-only with a zero-best pair: padded cells never take
+    the best, and the first-encounter argmax lands on (1, 1)."""
     sm = SubstitutionMatrix.blosum62()
-    codes1, codes2, n, m = _random_batch(sm.n_symbols)
-    # make one pair all-'*' vs all-'A' so its local best is 0 (ties the
-    # padded cells' clamped value)
-    star = sm.seq_to_index("*" * NP_PAD)
-    ala = sm.seq_to_index("A" * MP_PAD)
-    codes1 = codes1.copy()
-    codes2 = codes2.copy()
-    codes1[5, :] = star
-    codes2[5, :] = ala
-    S_tiled = np.asarray(
-        batch.scores_tiled(
-            sm.table, codes1, codes2, as_int8=True, tile=TB,
-            n=jnp.asarray(n), m=jnp.asarray(m),
-        )
-    )
-    # padded cells really are poisoned
-    assert (S_tiled[0, n[0]:, 0, :] == -128).all()
-    assert (S_tiled[0, :, 0, m[0]:] == -128).all()
-    tb_tiled, stats = batch.fill_pallas(
-        S_tiled, n, m, mode=LOCAL, og=OG, eg=EG, score_only=True,
-        interpret=True, masked_s=True,
-    )
-    assert tb_tiled is None
-    S_dense = np.stack(
-        [sm.dense_scores(codes1[b], codes2[b]) for b in range(TB)]
-    ).astype(np.float32)
-    ref = batch.fill_scan(S_dense, n, m, mode=LOCAL, og=OG, eg=EG,
-                          score_only=True)
-    for b in range(TB):
-        assert stats[b, 0] == pytest.approx(float(ref.best[b])), f"pair {b}"
-    assert float(ref.best[5]) == 0.0  # the all-mismatch pair exercised the tie
+    codes1, codes2, n, m = _zero_best_batch(sm)
+    _, stats, ref = _check(sm.table, codes1, codes2, n, m, mode=LOCAL,
+                           score_only=True)
+    assert float(ref.best[5]) == 0.0  # the all-mismatch pair hit the tie
+    assert (int(stats[5, 1]), int(stats[5, 2])) == (1, 1)
 
 
 def test_kernel_traceback_masked_s():
-    """LOCAL traceback with poisoned S padding + unmasked running best:
-    pointers in the valid region, best scores AND argmax positions must be
-    bit-identical to the masked kernel / scan reference — including the
-    gmax == 0 tie, where padded lanes also reach 0 at row 1 but must lose
-    the min-j tie-break to valid lane 0 (the masked_s proof in
-    pallas_dp._kernel)."""
-    import jax.numpy as jnp
-
+    """LOCAL traceback with the zero-best pair: pointers, best scores AND
+    argmax positions bit-identical to the scan reference."""
     sm = SubstitutionMatrix.blosum62()
-    codes1, codes2, n, m = _random_batch(sm.n_symbols)
-    star = sm.seq_to_index("*" * NP_PAD)
-    ala = sm.seq_to_index("A" * MP_PAD)
-    codes1 = codes1.copy()
-    codes2 = codes2.copy()
-    codes1[5, :] = star  # all-mismatch pair: local best is exactly 0
-    codes2[5, :] = ala
-    S_tiled = np.asarray(
-        batch.scores_tiled(
-            sm.table, codes1, codes2, as_int8=True, tile=TB,
-            n=jnp.asarray(n), m=jnp.asarray(m),
-        )
-    )
-    tb_tiled, stats = batch.fill_pallas(
-        S_tiled, n, m, mode=LOCAL, og=OG, eg=EG, interpret=True,
-        masked_s=True,
-    )
-    S_dense = np.stack(
-        [sm.dense_scores(codes1[b], codes2[b]) for b in range(TB)]
-    ).astype(np.float32)
-    ref = batch.fill_scan(S_dense, n, m, mode=LOCAL, og=OG, eg=EG)
+    codes1, codes2, n, m = _zero_best_batch(sm)
+    _, stats, ref = _check(sm.table, codes1, codes2, n, m, mode=LOCAL)
     assert float(ref.best[5]) == 0.0
-    for b in range(TB):
-        nb, mb = int(n[b]), int(m[b])
-        ours = batch.tb_pair_view(tb_tiled, b)[:nb, :mb]
-        theirs = np.asarray(ref.tb[b])[1 : nb + 1, 1 : mb + 1]
-        np.testing.assert_array_equal(ours, theirs, err_msg=f"pair {b} tb")
-        assert stats[b, 0] == pytest.approx(float(ref.best[b])), f"pair {b}"
-        if float(ref.best[b]) > 0:
-            assert int(stats[b, 1]) == int(ref.best_i[b]), f"pair {b} i"
-            assert int(stats[b, 2]) == int(ref.best_j[b]), f"pair {b} j"
-        else:
-            # zero-best argmax must still land on a valid cell (1, 1)
-            assert int(stats[b, 1]) == 1 and int(stats[b, 2]) == 1, f"pair {b}"
+    assert (int(stats[5, 1]), int(stats[5, 2])) == (1, 1)
 
 
 @pytest.mark.parametrize("mode", [GLOCAL, GLOBAL])
 @pytest.mark.parametrize("score_only", [False, True])
 def test_kernel_interior_row_blocks(mode, score_only):
-    """Non-LOCAL block specialization (finals_gate): with NP=128, MP=4096
-    the row block is 32 rows (4 blocks); final rows clustered into blocks
-    0 and 3 leave blocks 1-2 on the lean interior loop (no capture,
-    glocal interior penalties + detrended score-only scan) — results must
-    stay bit-identical to the scan reference."""
+    """Final rows (glocal's free last row, the finals capture) clustered
+    near the top and bottom of a tall, wide batch: rows between them hold
+    no pair's last row.  Results stay bit-identical to the scan."""
     sm = SubstitutionMatrix.blosum62()
     NP, MP = 128, 4096
-    from smithwaterman_tpu.ops.pallas_dp import _row_block
-
-    assert _row_block(NP, MP, TB, 1) == 32  # the premise of this test
     codes1 = RNG.integers(0, sm.n_symbols, size=(TB, NP)).astype(np.int32)
     codes2 = RNG.integers(0, sm.n_symbols, size=(TB, MP)).astype(np.int32)
     n = np.array([5, 20, 32, 127, 128, 100, 31, 97], dtype=np.int32)
     m = np.array([4096, 60, 333, 4096, 1, 2048, 100, 7], dtype=np.int32)
-    assert set((n - 1) // 32) == {0, 3}  # blocks 1, 2 are interior
-    S_tiled = np.asarray(
-        batch.scores_tiled(sm.table, codes1, codes2, as_int8=True, tile=TB)
-    )
-    tb_tiled, stats = batch.fill_pallas(
-        S_tiled, n, m, mode=mode, og=OG, eg=EG, score_only=score_only,
-        interpret=True,
-    )
-    S_dense = np.stack(
-        [sm.dense_scores(codes1[b], codes2[b]) for b in range(TB)]
-    ).astype(np.float32)
-    ref = batch.fill_scan(S_dense, n, m, mode=mode, og=OG, eg=EG,
-                          score_only=score_only)
-    for b in range(TB):
-        np.testing.assert_allclose(
-            stats[b, 3:6], np.asarray(ref.final[b]), err_msg=f"pair {b}"
-        )
-        if not score_only:
-            nb, mb = int(n[b]), int(m[b])
-            ours = batch.tb_pair_view(tb_tiled, b)[:nb, :mb]
-            theirs = np.asarray(ref.tb[b])[1 : nb + 1, 1 : mb + 1]
-            np.testing.assert_array_equal(ours, theirs, err_msg=f"pair {b}")
-
-
-def test_row_block_divides_np():
-    """Regression (ADVICE r1): beyond-ladder buckets round NP to 256-multiples
-    that a power-of-two row block need not divide — e.g. an 8300x50 pair
-    lands in bucket 8448x64 where the old budget block of 2048 left 256 rows
-    uncovered."""
-    from smithwaterman_tpu.ops.pallas_dp import _row_block
-
-    for np_pad in (64, 512, 8192, 8448, 8704, 13056, 24):
-        for mp_pad in (64, 128, 512, 4096, 8192):
-            for itemsize in (1, 4):
-                rb = _row_block(np_pad, mp_pad, 8, itemsize)
-                assert np_pad % rb == 0, (np_pad, mp_pad, itemsize, rb)
-                assert rb >= 1
-
-
-def test_finals_gate_shape_rule():
-    """The non-LOCAL block specialization is dropped exactly on traceback
-    fills whose row block is a single register group (rb_rows == R) —
-    measured 20.2 vs 31.5 GCUPS at that shape (MEASUREMENTS_r02.md
-    "finals_gate shape rule")."""
-    from smithwaterman_tpu.ops.pallas_dp import _MAX_R, _use_finals_gate
-
-    if _MAX_R != 8:  # pragma: no cover - env-var A/B runs only
-        pytest.skip("rule table assumes the default row-group cap")
-    assert not _use_finals_gate(LOCAL, False, 8)   # LOCAL never gates
-    assert not _use_finals_gate(GLOCAL, False, 8)  # single-group traceback
-    assert not _use_finals_gate(GLOBAL, False, 8)
-    assert _use_finals_gate(GLOCAL, True, 8)       # score-only keeps it
-    assert _use_finals_gate(GLOCAL, False, 16)     # multi-group keeps it
-    assert _use_finals_gate(GLOBAL, False, 32)
+    _check(sm.table, codes1, codes2, n, m, mode=mode, score_only=score_only)
 
 
 @pytest.mark.parametrize("mode", [GLOCAL, GLOBAL])
 def test_kernel_single_group_traceback_ungated(mode):
-    """Bit-exactness of the UNGATED non-LOCAL traceback path now taken by
-    default when rb_rows == R (NP=32, MP=16384 -> 8-row blocks): final
-    stats and every traceback pointer must match the scan reference."""
-    from smithwaterman_tpu.ops.pallas_dp import _row_block, _use_finals_gate
-
+    """A shallow, very wide batch (NP=32, MP=16384) with final rows in
+    every eighth of the rows: finals and every pointer match the scan."""
     sm = SubstitutionMatrix.blosum62()
     NP, MP = 32, 16384
-    assert _row_block(NP, MP, TB, 1) == 8  # the premise of this test
-    assert not _use_finals_gate(mode, False, 8)
     codes1 = RNG.integers(0, sm.n_symbols, size=(TB, NP)).astype(np.int32)
     codes2 = RNG.integers(0, sm.n_symbols, size=(TB, MP)).astype(np.int32)
-    # final rows spread over all four row blocks
     n = np.array([5, 8, 9, 16, 17, 24, 25, 32], dtype=np.int32)
     m = np.array([16384, 60, 333, 16384, 1, 2048, 100, 7], dtype=np.int32)
-    S_tiled = np.asarray(
-        batch.scores_tiled(sm.table, codes1, codes2, as_int8=True, tile=TB)
-    )
-    tb_tiled, stats = batch.fill_pallas(
-        S_tiled, n, m, mode=mode, og=OG, eg=EG, interpret=True
-    )
-    S_dense = np.stack(
-        [sm.dense_scores(codes1[b], codes2[b]) for b in range(TB)]
-    ).astype(np.float32)
-    ref = batch.fill_scan(S_dense, n, m, mode=mode, og=OG, eg=EG)
-    for b in range(TB):
-        np.testing.assert_allclose(
-            stats[b, 3:6], np.asarray(ref.final[b]), err_msg=f"pair {b}"
-        )
-        nb, mb = int(n[b]), int(m[b])
-        ours = batch.tb_pair_view(tb_tiled, b)[:nb, :mb]
-        theirs = np.asarray(ref.tb[b])[1 : nb + 1, 1 : mb + 1]
-        np.testing.assert_array_equal(ours, theirs, err_msg=f"pair {b}")
+    _check(sm.table, codes1, codes2, n, m, mode=mode)
 
 
 def test_fill_tiled_non_pow2_rows():
-    """fill_tiled on an NP the budget row block does not divide (NP=24 with
-    MP=8192 gives a 16-row budget block): every row must be covered."""
+    """A row count that is not a power of two (NP=24, MP=8192): every row
+    is filled."""
     sm = SubstitutionMatrix.blosum62()
     NP, MP = 24, 8192
     codes1 = RNG.integers(0, sm.n_symbols, size=(TB, NP)).astype(np.int32)
     codes2 = RNG.integers(0, sm.n_symbols, size=(TB, MP)).astype(np.int32)
     n = np.full(TB, NP, np.int32)
     m = np.array([50, 24, 8192, 100, 7, 1, 300, 129], dtype=np.int32)
-    S_tiled = np.asarray(
-        batch.scores_tiled(sm.table, codes1, codes2, as_int8=True, tile=TB)
-    )
-    _, stats = batch.fill_pallas(
-        S_tiled, n, m, mode=LOCAL, og=OG, eg=EG, score_only=True, interpret=True
-    )
-    S_dense = np.stack(
-        [sm.dense_scores(codes1[b], codes2[b]) for b in range(TB)]
-    ).astype(np.float32)
-    ref = batch.fill_scan(S_dense, n, m, mode=LOCAL, og=OG, eg=EG, score_only=True)
-    for b in range(TB):
-        assert stats[b, 0] == pytest.approx(float(ref.best[b])), f"pair {b}"
+    _check(sm.table, codes1, codes2, n, m, mode=LOCAL, score_only=True)
 
 
 def test_float_table_path():
-    """Non-integer tables use the exact f32 gather path."""
+    """Non-integer tables fill in f32 (no quarter-unit domain) and stay
+    equal to the scan on the same f32 arithmetic."""
     sm = SubstitutionMatrix.blosum62()
     table = sm.table + 0.123
-    assert not batch.is_integer_table(table)
+    assert not fill.is_integer_table(table)
+    assert not fill.quarter_exact(table, OG, EG)
+    assert fill.quarter_exact(sm.table, OG, EG)
     codes1, codes2, n, m = _random_batch(sm.n_symbols)
-    S_tiled = np.asarray(batch.scores_tiled(table, codes1, codes2, as_int8=False, tile=TB))
-    assert S_tiled.dtype == np.float32
-    for b in range(TB):
-        expect = table[np.ix_(codes1[b], codes2[b])].astype(np.float32)
-        np.testing.assert_array_equal(S_tiled[0, :, b, :], expect)
-    tb_tiled, stats = batch.fill_pallas(
-        S_tiled, n, m, mode=LOCAL, og=OG, eg=EG, interpret=True
-    )
-    ref = batch.fill_scan(
-        np.stack([table[np.ix_(codes1[b], codes2[b])] for b in range(TB)]).astype(
-            np.float32
-        ),
-        n,
-        m,
-        mode=LOCAL,
-        og=OG,
-        eg=EG,
-    )
-    for b in range(TB):
-        assert stats[b, 0] == pytest.approx(float(ref.best[b]))
+    _check(table, codes1, codes2, n, m, mode=LOCAL)
 
 
 @pytest.mark.parametrize("mode", [LOCAL, GLOCAL, GLOBAL])
@@ -341,31 +180,17 @@ def test_float_table_path():
 def test_kernel_degenerate_penalties(mode, og, eg):
     """Traceback-pointer equivalence at penalty edge cases.
 
-    og=eg=0 exercises the xscan lane-0 tie (the only case where the X
+    og=eg=0 exercises the lane-0 ties (the only case where the X
     boundary extend can win the non-LOCAL `>=` compare); eg=0 kills the
-    lane detrend slope; og=-25 makes every open lose to extends early."""
+    scan's detrend slope; og=-25 makes every open lose to extends early."""
     sm = SubstitutionMatrix.blosum62()
     codes1, codes2, n, m = _random_batch(sm.n_symbols)
-    S_dense = np.stack(
-        [sm.dense_scores(codes1[b], codes2[b]) for b in range(TB)]
-    ).astype(np.float32)
-    S_tiled = np.asarray(
-        batch.scores_tiled(sm.table, codes1, codes2, as_int8=True, tile=TB)
-    )
-    tb_tiled, stats = batch.fill_pallas(
-        S_tiled, n, m, mode=mode, og=og, eg=eg, interpret=True
-    )
-    ref = batch.fill_scan(S_dense, n, m, mode=mode, og=og, eg=eg)
-    for b in range(TB):
-        nb, mb = int(n[b]), int(m[b])
-        ours = batch.tb_pair_view(tb_tiled, b)[:nb, :mb]
-        theirs = np.asarray(ref.tb[b])[1 : nb + 1, 1 : mb + 1]
-        np.testing.assert_array_equal(ours, theirs, err_msg=f"pair {b} tb")
+    _check(sm.table, codes1, codes2, n, m, mode=mode, og=og, eg=eg)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_kernel_fuzz_random_shapes_penalties(seed):
-    """Randomized kernel-vs-scan equivalence: random lengths (incl. 1),
+    """Randomized fill-vs-scan equivalence: random lengths (incl. 1),
     random quarter-integer penalties, all three modes, full traceback."""
     rng = np.random.default_rng(1000 + seed)
     sm = SubstitutionMatrix.blosum62()
@@ -376,21 +201,6 @@ def test_kernel_fuzz_random_shapes_penalties(seed):
     codes2 = rng.integers(0, sm.n_symbols, size=(TB, MP_PAD)).astype(np.int32)
     og = -float(rng.integers(0, 65)) / 4.0
     eg = -float(rng.integers(0, 17)) / 4.0
-    S_dense = np.stack(
-        [sm.dense_scores(codes1[b], codes2[b]) for b in range(TB)]
-    ).astype(np.float32)
-    S_tiled = np.asarray(
-        batch.scores_tiled(sm.table, codes1, codes2, as_int8=True, tile=TB)
-    )
     for mode in (LOCAL, GLOCAL, GLOBAL):
-        tb_tiled, stats = batch.fill_pallas(
-            S_tiled, n, m, mode=mode, og=og, eg=eg, interpret=True
-        )
-        ref = batch.fill_scan(S_dense, n, m, mode=mode, og=og, eg=eg)
-        for b in range(TB):
-            nb, mb = int(n[b]), int(m[b])
-            ours = batch.tb_pair_view(tb_tiled, b)[:nb, :mb]
-            theirs = np.asarray(ref.tb[b])[1 : nb + 1, 1 : mb + 1]
-            np.testing.assert_array_equal(
-                ours, theirs, err_msg=f"mode {mode} pair {b} og={og} eg={eg}"
-            )
+        _check(sm.table, codes1, codes2, n, m, mode=mode, og=og, eg=eg,
+               msg=f"mode {mode} og={og} eg={eg}")

@@ -58,7 +58,7 @@ def test_differential_vs_reference_perl(s1, s2):
     r = Aligner(mode=LOCAL, perl_compat=True).align(s1, s2, False)
     assert (r.aligned1, r.aligned2, r.score) == (ref_a1, ref_a2, ref_score)
 
-    rb = BatchAligner(mode=LOCAL, backend="pallas_interpret",
+    rb = BatchAligner(mode=LOCAL, backend="xla",
                       perl_compat=True).align_pairs(
         [(s1, s2)], retain_all=False)[0]
     assert (rb.aligned1, rb.aligned2, rb.score) == (

@@ -3,8 +3,8 @@ string-exact vs all 300 EMBOSS goldens (100 pairs x 3 modes).
 
 refbench is BENCHMARK scaffolding — a two-sided C++ bound of the
 reference's fastest engine (Rust CPU, sequence_alignment.rs:55-550),
-which has no toolchain in this image.  Its times are only meaningful in
-REFBENCH_r03.json if its outputs are the reference's outputs; this test
+which has no toolchain here.  Its times are only meaningful if its
+outputs are the reference's outputs; this test
 pins that, so scripts/bench_vs_reference.py can trust the binary.
 """
 

@@ -66,7 +66,7 @@ def test_two_set_sweep_with_alignments(tmp_path):
 
 
 def test_score_matrix_rejects_partial_file(tmp_path):
-    """Regression (ADVICE r1): a partial sweep file (e.g. only this host's
+    """Regression: a partial sweep file (e.g. only this host's
     shard) must raise, not silently read as zero scores."""
     import pytest
 
@@ -94,7 +94,7 @@ def test_process_sharding(tmp_path):
 
 def test_sweep_stats_option(tmp_path, capsys):
     """SweepConfig(stats=True) attaches a collector and emits the JSON
-    report on stderr after the sweep (VERDICT r3 weak #6)."""
+    report on stderr after the sweep."""
     out = str(tmp_path / "sweep.jsonl")
     cfg = SweepConfig(chunk_pairs=4, score_only=False, stats=True)
     eng = _engine()
